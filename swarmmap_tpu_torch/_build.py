@@ -37,16 +37,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded library for csrc/<name>.cu, building it first if
-    the cache holds no build of the current source."""
+def load(name: str, src: str | Path | None = None) -> ctypes.CDLL:
+    """Return the loaded library for csrc/<name>.cu (or for the source file
+    `src`, loaded under `name`), building it first if the cache holds no
+    build of that source."""
     if name in _LOADED:
         return _LOADED[name][0]
-    src = CSRC / f"{name}.cu"
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    record = {"name": name, "so": str(so), "cached": so.exists(),
-              "seconds": 0.0, "ptxas": ""}
+    report = so.with_suffix(".ptxas.txt")  # kept beside the build for cached loads
+    record = {"name": name, "so": str(so), "cached": so.exists(), "seconds": 0.0,
+              "ptxas": report.read_text() if report.exists() else ""}
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -59,6 +61,7 @@ def load(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
         record["ptxas"] = proc.stderr.strip()
+        report.write_text(record["ptxas"])
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _LOADED[name] = (lib, record)

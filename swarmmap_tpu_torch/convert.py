@@ -14,10 +14,13 @@ import torch
 from .ops.extractor import FrameFeatures
 from .ops.pose_opt import PoseOptResult
 from .pipeline import TrackInputs, TrackOutputs
+from .utils.device import default_device
 
 
-def to_tensor(x, device: torch.device | str = "cpu") -> torch.Tensor:
-    """numpy array -> tensor on `device`; uint32 becomes an int32 view."""
+def to_tensor(x, device: torch.device | str | None = None) -> torch.Tensor:
+    """numpy array -> tensor on `device` (by default the card); uint32
+    becomes an int32 view."""
+    device = default_device() if device is None else device
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -31,9 +34,9 @@ def to_numpy(t: torch.Tensor, uint32: bool = False) -> np.ndarray:
     return a.view(np.uint32) if uint32 else a
 
 
-def track_inputs_from_numpy(inp, device: torch.device | str = "cpu") -> TrackInputs:
+def track_inputs_from_numpy(inp, device: torch.device | str | None = None) -> TrackInputs:
     """The JAX package's TrackInputs (any array-likes, batched or not) ->
-    this package's TrackInputs on `device`."""
+    this package's TrackInputs on `device` (by default the card)."""
     return TrackInputs(*(to_tensor(getattr(inp, f), device) for f in TrackInputs._fields))
 
 

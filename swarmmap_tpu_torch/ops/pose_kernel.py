@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,15 +21,39 @@ pose_lm_launches = 0
 
 _P = ctypes.c_void_p
 
+THREADS = 256        # threads per CTA; one CTA per agent
+PPT_BUILDS = (4, 8)  # the kernel's points-per-thread instantiations
+MAX_POINTS = PPT_BUILDS[-1] * THREADS
 
-@functools.cache
-def _launch_fn():
-    """The C entry point, built and typed at first use."""
-    fn = _build.load("pose_lm").pose_lm_launch
+
+class LaunchConfig(NamedTuple):
+    ppt: int      # points each thread holds in registers
+    threads: int  # threads per CTA
+
+
+def launch_config(n: int) -> LaunchConfig:
+    """The instantiation of pose_lm_kernel that takes N points per agent
+    (the same choice as pose_lm_launch in csrc/pose_lm.cu): 4 points per
+    thread up to N = 1024, 8 up to N = 2048.  Raises ValueError above."""
+    for ppt in PPT_BUILDS:
+        if n <= ppt * THREADS:
+            return LaunchConfig(ppt, THREADS)
+    raise ValueError(f"pose_lm_kernel takes at most {MAX_POINTS} points per agent, got {n}")
+
+
+def bind(lib: ctypes.CDLL):
+    """The typed C entry point pose_lm_launch of a build of csrc/pose_lm.cu."""
+    fn = lib.pose_lm_launch
     fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launch_fn():
+    """The C entry point, built and typed at first use."""
+    return bind(_build.load("pose_lm"))
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
@@ -57,9 +82,10 @@ def pose_optimize_cuda(
     """A agents' LM pose optimisations in one kernel launch.
 
     Tcw0 [A,4,4], K [A,3,3], pts_w [A,N,3], uv [A,N,2], inv_sigma2 [A,N]
-    fp32 and valid [A,N] bool, all contiguous on one CUDA device.  Returns
-    Tcw [A,4,4], inliers [A,N] bool, chi2 [A,N].  Launches on the current
-    stream and does not synchronise."""
+    fp32 and valid [A,N] bool, all contiguous on one CUDA device, with
+    N <= MAX_POINTS (`launch_config`).  Returns Tcw [A,4,4], inliers [A,N]
+    bool, chi2 [A,N].  Launches on the current stream and does not
+    synchronise."""
     global pose_lm_launches
     A, N = pts_w.shape[0], pts_w.shape[1]
     dev = Tcw0.device
@@ -72,6 +98,7 @@ def pose_optimize_cuda(
         _check(name, t, shape, dt, dev)
     if rounds < 0 or iters < 0:
         raise ValueError("rounds and iters must be >= 0")
+    launch_config(N)
     launch = _launch_fn()
     Tout = torch.empty((A, 4, 4), dtype=f32, device=dev)
     inl = torch.empty((A, N), dtype=torch.bool, device=dev)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .ops import extractor, hamming, matching, pose_opt
+from .utils.device import default_device
 
 
 class TrackInputs(NamedTuple):
@@ -191,14 +192,17 @@ def realistic_track_inputs(
     hw: tuple[int, int] = (480, 752), n_map_points: int = 2048, seed: int = 0,
     n_features: int = 1000, n_levels: int = 8, scale: float = 1.2,
     dist: tuple[float, ...] = (0.0, 0.0, 0.0, 0.0, 0.0),
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> TrackInputs:
     """Steady-state inputs from a rendered synthetic world (one agent): the
     local map holds true landmark positions with descriptors extracted
     (by this package's extractor, on `device`) from the previous frame, and
     the pose guess is the constant-velocity extrapolation of the true
-    poses — so matching finds real correspondences."""
+    poses — so matching finds real correspondences.  `device` defaults to
+    the card (`utils.device.default_device`)."""
     from .utils import datasets
+
+    device = default_device() if device is None else device
 
     f0, f1, f2 = 19, 20, 21
     w = datasets.make_world(
@@ -264,9 +268,11 @@ def stack_inputs(inputs: list[TrackInputs]) -> TrackInputs:
 
 def example_track_inputs(
     hw: tuple[int, int] = (480, 752), n_map_points: int = 2048, seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> TrackInputs:
-    """Deterministic random-noise example inputs (one agent)."""
+    """Deterministic random-noise example inputs (one agent) on `device`,
+    by default the card (`utils.device.default_device`)."""
+    device = default_device() if device is None else device
     rng = np.random.RandomState(seed)
     h, w = hw
     img = rng.randint(0, 255, (h, w)).astype(np.uint8)

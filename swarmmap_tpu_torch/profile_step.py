@@ -2,12 +2,12 @@
 
     python -m swarmmap_tpu_torch.profile_step [--out DIR]
 
-Runs the main path (3 agents, EuRoC geometry: 480x752, 1000 features,
-8 levels, 2048 map points, pinhole) for a few warm-up steps, then one step
-under torch.profiler.  Prints one JSON line: device kernels launched in the
-step, their summed device time, the step's wall time and the device's idle
-share of it; writes the profiler's table sorted by device time to
-DIR/profile_step.txt.  Needs a CUDA device.
+Runs the main path in the pinhole cell of `cells.py` (3 agents, EuRoC
+geometry: 480x752, 1000 features, 8 levels, 2048 map points) for a few
+warm-up steps, then one step under torch.profiler.  Prints one JSON line:
+device kernels launched in the step, their summed device time, the step's
+wall time and the device's idle share of it; writes the profiler's table
+sorted by device time to DIR/profile_step.txt.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -18,8 +18,6 @@ import time
 from pathlib import Path
 
 import torch
-
-N_AGENTS = 3
 
 
 def main() -> None:
@@ -33,19 +31,15 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from swarmmap_tpu_torch import pipeline
+    from swarmmap_tpu_torch.cells import N_AGENTS, STEP_KW, build_cells
 
-    dev = torch.device("cuda", 0)
-    hw = (480, 752)
-    inp = pipeline.stack_inputs([
-        pipeline.realistic_track_inputs(hw=hw, n_map_points=2048, seed=a, device=dev)
-        for a in range(N_AGENTS)
-    ])
+    inp = build_cells(torch.device("cuda", 0))["pinhole"]
     for _ in range(3):
-        pipeline.batched_tracking_step(inp, hw=hw)
+        pipeline.batched_tracking_step(inp, **STEP_KW)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipeline.batched_tracking_step(inp, hw=hw)
+        pipeline.batched_tracking_step(inp, **STEP_KW)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

@@ -1,9 +1,12 @@
-"""Batched device<->host transfer with accounting.
+"""The default device, and batched device<->host transfer with accounting.
 
 Port of swarmmap_tpu/utils/device.py: every host-side consumer of device
 results fetches through `fetch()`, one call per logical step, so the
 `rpc_fetch` / `rpc_h2d` counters count logical round trips.  A fetch
 queues every device->host copy first and waits once.
+
+Entry points that take a `device` run on `default_device()`, the card,
+unless the caller names another; there is no silent fallback to the CPU.
 """
 from __future__ import annotations
 
@@ -14,6 +17,15 @@ import numpy as np
 import torch
 
 from .stats import STATS
+
+
+def default_device() -> torch.device:
+    """cuda:0, the device an entry point uses when the caller names none.
+    Raises where there is no CUDA device: pass device="cpu" to run on the
+    CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
+    return torch.device("cuda", 0)
 
 
 def _map(fn, tree, leaf=torch.Tensor):

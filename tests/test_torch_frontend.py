@@ -148,7 +148,7 @@ def test_compute_descriptors_exact_bit_identical(jax_levels):
 def test_pack_unpack_round_trip():
     rng = np.random.RandomState(1)
     words = rng.randint(0, 2**32, (17, 8), dtype=np.uint32)
-    bits = brief.unpack_bits(convert.to_tensor(words))
+    bits = brief.unpack_bits(convert.to_tensor(words, device="cpu"))
     np.testing.assert_array_equal(bits.numpy(), np.asarray(jbrief.unpack_bits(jnp.asarray(words))))
     np.testing.assert_array_equal(convert.to_numpy(brief._pack_bits(bits), uint32=True), words)
 

@@ -13,7 +13,7 @@ from swarmmap_tpu_torch.ops import hamming, matching
 
 
 def _t(a):
-    return convert.to_tensor(a)
+    return convert.to_tensor(a, device="cpu")
 
 
 def _descs(rng, n):

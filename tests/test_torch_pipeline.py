@@ -16,11 +16,12 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from swarmmap_tpu import pipeline as jpipe
 from swarmmap_tpu.utils import datasets as jdata
 from swarmmap_tpu_torch import convert, pipeline
-from swarmmap_tpu_torch.utils import datasets
+from swarmmap_tpu_torch.utils import datasets, device
 
 REPO = Path(__file__).resolve().parents[1]
 HW = (240, 320)
@@ -55,7 +56,7 @@ def test_tracking_step_matches_jax(jax_inputs, seed):
     inp = jax_inputs[seed]
     a = jpipe.tracking_step(inp, **KW)
     b = convert.track_outputs_to_numpy(
-        pipeline.tracking_step(convert.track_inputs_from_numpy(inp), **KW))
+        pipeline.tracking_step(convert.track_inputs_from_numpy(inp, device="cpu"), **KW))
     assert b.Tcw.shape == (4, 4) and b.match_mp.shape == (256,)
     assert b.features.desc.dtype == np.uint32
     _assert_step_agrees(a, b)
@@ -73,7 +74,7 @@ def test_batched_tracking_step_matches_jax(jax_inputs):
     batch = jpipe.TrackInputs(*(jnp.stack(xs) for xs in zip(*jax_inputs)))
     a = jpipe.batched_tracking_step(batch, **KW)
     b = convert.track_outputs_to_numpy(
-        pipeline.batched_tracking_step(convert.track_inputs_from_numpy(batch), **KW))
+        pipeline.batched_tracking_step(convert.track_inputs_from_numpy(batch, device="cpu"), **KW))
     assert b.Tcw.shape == (3, 4, 4) and b.n_inliers.shape == (3,)
     for i in range(3):
         _assert_step_agrees(_agent(a, i), _agent(b, i))
@@ -85,7 +86,7 @@ def test_distorted_step_matches_jax():
                                        n_levels=3, seed=1, dist=dist)
     a = jpipe.tracking_step(inp, **KW)
     b = convert.track_outputs_to_numpy(
-        pipeline.tracking_step(convert.track_inputs_from_numpy(inp), **KW))
+        pipeline.tracking_step(convert.track_inputs_from_numpy(inp, device="cpu"), **KW))
     np.testing.assert_allclose(b.xy_ud, np.asarray(a.xy_ud), atol=1e-2)
     _assert_step_agrees(a, b)
 
@@ -93,7 +94,7 @@ def test_distorted_step_matches_jax():
 def test_multi_agent_step_matches_jax(jax_inputs):
     batch = jpipe.TrackInputs(*(jnp.stack(xs) for xs in zip(*jax_inputs)))
     _, ov_a, tot_a = jpipe.make_multi_agent_step(**KW)(batch)
-    _, ov_b, tot_b = pipeline.make_multi_agent_step(**KW)(convert.track_inputs_from_numpy(batch))
+    _, ov_b, tot_b = pipeline.make_multi_agent_step(**KW)(convert.track_inputs_from_numpy(batch, device="cpu"))
     ov_a = np.asarray(ov_a)
     assert ov_b.shape == (3, 3)
     assert np.abs(ov_b.numpy() - ov_a).max() <= 2, (ov_a, ov_b)
@@ -108,14 +109,14 @@ def test_realistic_inputs_match_jax(jax_inputs):
     for seed in SEEDS:
         a = jax_inputs[seed]
         b = pipeline.realistic_track_inputs(hw=HW, n_map_points=512, n_features=256,
-                                            n_levels=3, seed=seed)
+                                            n_levels=3, seed=seed, device="cpu")
         for f in ("image", "Tcw_guess", "K", "dist"):
             np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(a, f)))
         rows_a = {r.tobytes() for r in np.asarray(a.mp_pos)[np.asarray(a.mp_valid)]}
         rows_b = {r.tobytes() for r in b.mp_pos.numpy()[b.mp_valid.numpy()]}
         assert len(rows_a & rows_b) >= 0.98 * max(len(rows_a), len(rows_b))
     e_a = jpipe.example_track_inputs(hw=HW, n_map_points=64, seed=4)
-    e_b = pipeline.example_track_inputs(hw=HW, n_map_points=64, seed=4)
+    e_b = pipeline.example_track_inputs(hw=HW, n_map_points=64, seed=4, device="cpu")
     for f in e_a._fields:
         np.testing.assert_array_equal(convert.to_numpy(getattr(e_b, f), uint32=(f == "mp_desc")),
                                       np.asarray(getattr(e_a, f)))
@@ -139,6 +140,24 @@ def test_synthetic_world_identical(motion, dist):
         datasets.make_world(n_dynamic=3)
 
 
+@pytest.mark.parametrize("entry", [
+    lambda: pipeline.realistic_track_inputs(hw=HW, n_map_points=64),
+    lambda: pipeline.example_track_inputs(hw=HW, n_map_points=64),
+    lambda: convert.to_tensor(np.zeros(3, np.float32)),
+    lambda: convert.track_inputs_from_numpy(pipeline.example_track_inputs(
+        hw=HW, n_map_points=64, device="cpu")),
+], ids=["realistic_track_inputs", "example_track_inputs", "to_tensor",
+        "track_inputs_from_numpy"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no device named, an entry point asks for the card and raises
+    where there is none: no silent fallback to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        entry()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device.default_device() == torch.device("cuda", 0)
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -158,7 +177,7 @@ def test_port_never_reaches_jax():
         "from swarmmap_tpu_torch import convert, pipeline\n"
         "from swarmmap_tpu_torch.utils import device, stats\n"
         "inp = pipeline.realistic_track_inputs(hw=(240, 320), n_map_points=512,"
-        " n_features=256, n_levels=3)\n"
+        " n_features=256, n_levels=3, device='cpu')\n"
         "out = pipeline.tracking_step(inp, n_features=256, n_levels=3, hw=(240, 320))\n"
         "host = device.fetch(out)\n"
         "assert stats.STATS.counts['rpc_fetch'] == 1\n"

@@ -101,13 +101,17 @@ def test_pose_optimize_matches_jax(rounds, iters):
         _agree(a, b, 1e-3, 0.99)
 
 
-@pytest.mark.parametrize("rounds,iters", SCHEDULES)
-def test_fixed_schedule_matches_pallas_interpret(rounds, iters):
+@pytest.mark.parametrize("rounds,iters,n", [
+    pytest.param(2, 8, 512, id="2-8"), pytest.param(4, 10, 512, id="4-10"),
+    pytest.param(2, 8, 2048, id="2-8-n2048"), pytest.param(4, 10, 2048, id="4-10-n2048"),
+])
+def test_fixed_schedule_matches_pallas_interpret(rounds, iters, n):
     """The kernel's plain counterpart, pose_optimize(step_tol=0), against
-    the TPU kernel run in interpret mode."""
+    the TPU kernel run in interpret mode; N = 2048 is KITTI's width (2000
+    features), the CUDA kernel's 8-points-per-thread build."""
     rng = np.random.RandomState(300 + rounds)
     for _ in range(2):
-        args = setup(rng, n=512, cold=(rounds, iters) == (4, 10))
+        args = setup(rng, n=n, cold=(rounds, iters) == (4, 10))
         a = pallas_pose.pose_optimize_pallas(*(jnp.asarray(x) for x in args),
                                              rounds=rounds, iters=iters, interpret=True)
         b = pose_opt.pose_optimize(*_torch(args), rounds=rounds, iters=iters, step_tol=0.0)
@@ -142,6 +146,40 @@ def test_auto_dispatch_on_cpu_runs_plain_version():
     assert pose_kernel.pose_lm_launches == before
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("n,ppt", [(1, 4), (300, 4), (1000, 4), (1024, 4), (1025, 8), (2048, 8)])
+def test_launch_config_picks_the_instantiation(n, ppt):
+    assert pose_kernel.launch_config(n) == pose_kernel.LaunchConfig(ppt=ppt, threads=256)
+
+
+def test_launch_config_refuses_more_than_2048_points():
+    assert pose_kernel.MAX_POINTS == 2048
+    with pytest.raises(ValueError, match="at most 2048"):
+        pose_kernel.launch_config(2049)
+
+
+@pytest.mark.parametrize("rounds,iters", [(0, 8), (1, 1), (2, 8)])
+def test_pose_bound_charges_what_the_data_needs(rounds, iters):
+    """bench_pose.bound: a full pass per LM step over each round's active
+    points only; the outliers gated out after round 0 cost one chi2."""
+    from swarmmap_tpu_torch import bench_pose as bp
+
+    prob = bp.pose_problems(np.random.RandomState(8), 2, 256, cold=False)
+    A, N = prob[5].shape
+    valid = int(prob[5].sum())
+    active = bp.active_per_round(prob, rounds, iters)
+    assert len(active) == rounds and active[:1] == [valid][:rounds]
+    if rounds == 2:  # the 20% outliers leave the active set after round 0
+        assert 0.7 * valid < active[1] < 0.9 * valid
+    last = active[-1] if active else 0
+    flops = (sum(active) * (iters + 1) * bp.FLOP_PER_POINT_PASS
+             + (A * N - last) * bp.FLOP_CHI2 + A * rounds * iters * bp.FLOP_PER_STEP)
+    nbytes = A * N * bp.BYTES_PER_POINT + A * bp.BYTES_PER_AGENT
+    ms, by = bp.bound(prob, rounds, iters)
+    assert ms == pytest.approx(1e3 * max(flops / bp.PEAK_FP32_FLOPS, nbytes / bp.PEAK_BYTES_PER_S))
+    assert by == ("operations" if flops / bp.PEAK_FP32_FLOPS >= nbytes / bp.PEAK_BYTES_PER_S
+                  else "bytes")
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
