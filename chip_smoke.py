@@ -3,12 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the main path
-(the batched per-frame tracking step in the two cells of
-`swarmmap_tpu_torch/cells.py`: 3 agents at EuRoC geometry, 480x752, 1000
-features, 8 levels, 2048 map points; pinhole and EuRoC-distorted) and
-times it.  Any failed phase is fatal.  Needs a CUDA device: without one it
-exits non-zero before doing anything.
+each against its plain PyTorch version on the card, drives the main paths
+and times them.  Any failed phase is fatal.  Needs a CUDA device: without
+one it exits non-zero before doing anything.  The paths:
+
+- the batched per-frame tracking step in the two cells of
+  `swarmmap_tpu_torch/cells.py` (3 agents at EuRoC geometry, 480x752, 1000
+  features, 8 levels, 2048 map points; pinhole and EuRoC-distorted);
+- the per-agent tracker (`core/tracking.py`, `Tracking.grab`) on
+  make_world(seed=4) at the same geometry with 1500 landmarks: 40 RGB-D
+  frames (the staged path, two 4x10 pose_lm launches per frame), a depth
+  frame then 20 monocular frames (the fused path, one 2x8 launch per
+  frame), and a relocalisation (RANSAC PnP with its 3x8 refinement, then
+  4x10), each against ground truth and its first frames against the same
+  tracker on the CPU; every pose_lm launch of these paths is held against
+  the plain version on the tensors it was given.
 
 Kernel times are CUDA events around 50 back-to-back launches divided by
 the count, with the stream held by a sleep kernel while the host enqueues
@@ -19,8 +28,9 @@ CUDA events around single calls.
 The last line of standard output is one JSON object,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is {"kernels": [...]} with each kernel's launches on the
-main path (and per step), its disagreement with the plain version, its
-time, the plain version's, the roofline bound and the library call's.
+main paths (per path, per step and per frame), its disagreement with the
+plain version, its time, the plain version's, the roofline bound and the
+library call's.
 """
 from __future__ import annotations
 
@@ -36,8 +46,13 @@ import torch
 N_STEPS = 5
 # kernel vs plain bars (fp32 reduction order differs between the two)
 TCW_TOL = 1e-3
-AGREE_MIN = {(2, 8): 0.99, (4, 10): 0.98}
+AGREE_MIN = {(2, 8): 0.99, (3, 8): 0.98, (4, 10): 0.98}
 MIN_INLIERS = 30
+# the tracker phases
+RGBD_FRAMES = 40
+MONO_FRAMES = 20
+CPU_FRAMES = 5
+MAX_MEDIAN_TRANS_ERR = 0.05  # m, the bar of tests/test_rgbd_stereo.py
 
 
 def log(*args) -> None:
@@ -197,6 +212,194 @@ def phase_reference(cells: dict, outs: dict) -> float:
     return worst
 
 
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, float), q))
+
+
+def _reset_counts() -> None:
+    from swarmmap_tpu_torch.ops import pose_kernel
+    from swarmmap_tpu_torch.utils.stats import STATS
+
+    STATS.reset()
+    pose_kernel.pose_lm_launches = 0
+
+
+def _read_counts() -> tuple[int, dict]:
+    from swarmmap_tpu_torch.ops import pose_kernel
+    from swarmmap_tpu_torch.utils.stats import STATS
+
+    torch.cuda.synchronize()
+    return pose_kernel.pose_lm_launches, dict(STATS.counts)
+
+
+def _path_summary(name: str, records, launches: int) -> dict:
+    """Per-frame ms (median, p90), fetches and launches per frame of the
+    frames `records` of one tracker path, and `launches`, the phase's
+    whole count; printed and returned."""
+    ms = [r.ms for r in records]
+    fetches = [r.counts.get("rpc_fetch", 0) for r in records]
+    out = {"frames": len(records), "launches": launches,
+           "launches_per_frame": float(np.mean([r.counts["pose_lm"] for r in records])),
+           "ms_median": _pct(ms, 50), "ms_p90": _pct(ms, 90),
+           "fetches_per_frame_median": _pct(fetches, 50),
+           "fetches_per_frame_mean": float(np.mean(fetches))}
+    log(f"  tracker {name}: " + json.dumps(out))
+    log(f"  tracker {name}: fetches per frame {fetches}")
+    return out
+
+
+def _hold_to_plain(name: str, calls) -> float:
+    """The pose_lm launches that `record_pose_calls` kept on one tracker
+    path against the plain pose_optimize(step_tol=0) on the same card
+    tensors, per schedule; returns the largest |dTcw|."""
+    from swarmmap_tpu_torch.bench_pose import against_plain
+
+    rows = against_plain(calls)
+    for sched in sorted({r["schedule"] for r in rows}):
+        rs = [r for r in rows if r["schedule"] == sched]
+        err, agree = max(r["err"] for r in rs), min(r["agree"] for r in rs)
+        log(f"  tracker {name}: kernel vs plain on its {len(rs)} calls at "
+            f"{sched[0]}x{sched[1]}, N {sorted({r['n'] for r in rs})}: max|dTcw| "
+            f"{err:.3g}, least inlier agreement {agree:.4f}")
+        if not err < TCW_TOL or not agree > AGREE_MIN[sched]:
+            fail(f"tracker {name}: pose kernel disagrees with plain at {sched}")
+    return max(r["err"] for r in rows)
+
+
+def _pnp_ms(dev: torch.device, K: np.ndarray) -> float:
+    """Host ms of one ransac_pnp, to its fetch, on 256 exact projections of
+    random points."""
+    from swarmmap_tpu_torch.ops import pnp
+
+    rng = np.random.RandomState(0)
+    pts = np.stack([rng.uniform(-2, 2, 256), rng.uniform(-2, 2, 256),
+                    rng.uniform(3, 8, 256)], 1).astype(np.float32)
+    uv = (pts[:, :2] / pts[:, 2:] * np.diag(K)[:2] + K[:2, 2]).astype(np.float32)
+    args = [torch.from_numpy(x).to(dev)
+            for x in (pts, uv, np.ones(256, bool), K.astype(np.float32))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = bool(pnp.ransac_pnp(*args, torch.Generator(device=dev).manual_seed(0)).success)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not ok:
+        fail("ransac_pnp found no pose for exact projections")
+    return ms
+
+
+def phase_tracker(dev: torch.device) -> dict:
+    """The per-agent tracker's three phases on the card, each driven with
+    the counts set to 0 just before it and read just after and with its
+    pose_lm launches recorded and held to the plain version, then the first
+    CPU_FRAMES frames of the RGB-D and fused phases again on the CPU."""
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.cells import (compare_records, new_tracker, render_frames,
+                                          track_frame, track_sequence, tracker_world)
+
+    t0 = time.perf_counter()
+    world = tracker_world()
+    frames = render_frames(world, RGBD_FRAMES)
+    log(f"tracker world: {world.points.shape[0]} landmarks, {world.hw}, "
+        f"{len(frames)} frames rendered ({time.perf_counter() - t0:.1f}s)")
+    paths = {}
+
+    # RGB-D: every frame takes the staged path
+    _reset_counts()
+    with record_pose_calls() as calls:
+        rgbd = track_sequence(new_tracker(world, dev), frames, range(RGBD_FRAMES))
+    launches, counts = _read_counts()
+    states = [r.state for r in rgbd]
+    if states != ["OK"] * RGBD_FRAMES:
+        fail(f"tracker rgbd: states {states}")
+    errs = []
+    T0, G0 = np.linalg.inv(rgbd[0].pose_cw), world.poses_wc[0]
+    for i, r in enumerate(rgbd):
+        e = np.linalg.inv(T0) @ np.linalg.inv(r.pose_cw)
+        g = np.linalg.inv(G0) @ world.poses_wc[i]
+        errs.append(float(np.linalg.norm(e[:3, 3] - g[:3, 3])))
+    log(f"tracker rgbd: {states.count('OK')}/{RGBD_FRAMES} frames OK, inliers "
+        f"{min(r.inliers for r in rgbd[1:])}-{max(r.inliers for r in rgbd[1:])}, "
+        f"map {rgbd[-1].n_kf} keyframes / {rgbd[-1].n_mp} points, median translation "
+        f"error {np.median(errs):.4f} m (max {max(errs):.4f}), pose_lm launches {launches}, "
+        f"_pose_opt_frame calls {counts.get('pose_opt_frame', 0)}")
+    if not np.median(errs) < MAX_MEDIAN_TRANS_ERR:
+        fail(f"tracker rgbd: median translation error {np.median(errs):.4f} m")
+    if launches != counts.get("pose_opt_frame", 0) or launches < 2 * (RGBD_FRAMES - 1):
+        fail(f"tracker rgbd: {launches} pose_lm launches for "
+             f"{counts.get('pose_opt_frame', 0)} _pose_opt_frame calls")
+    paths["tracker_rgbd"] = _path_summary("rgbd (staged)", rgbd[1:], launches)
+    paths["tracker_rgbd"]["max_abs_err"] = _hold_to_plain("rgbd", calls)
+
+    # a depth bootstrap, then monocular frames: the fused path
+    _reset_counts()
+    with record_pose_calls() as calls:
+        fused = track_sequence(new_tracker(world, dev), frames[:MONO_FRAMES + 1], {0})
+    launches, counts = _read_counts()
+    log(f"tracker fused: states {sorted(set(r.state for r in fused))}, fused_frames "
+        f"{fused[-1].fused_frames}, pose_lm launches {launches} = fused steps "
+        f"{counts.get('fused_step', 0)} + _pose_opt_frame calls {counts.get('pose_opt_frame', 0)}")
+    fused_recs = [r for r in fused if r.counts.get("fused_step") and "pose_opt_frame" not in r.counts]
+    if [r.state for r in fused] != ["OK"] * (MONO_FRAMES + 1):
+        fail("tracker fused: a frame was not tracked")
+    if fused[-1].fused_frames != MONO_FRAMES - 1 or len(fused_recs) != MONO_FRAMES - 1:
+        fail(f"tracker fused: {fused[-1].fused_frames} fused frames, not {MONO_FRAMES - 1}")
+    if any(r.counts["pose_lm"] != 1 for r in fused_recs) or launches != (
+            counts.get("fused_step", 0) + counts.get("pose_opt_frame", 0)):
+        fail("tracker fused: pose_lm launches do not match the fused and staged calls")
+    paths["tracker_fused"] = _path_summary("fused", fused_recs, launches)
+    paths["tracker_fused"]["max_abs_err"] = _hold_to_plain("fused", calls)
+
+    # relocalisation: depth init on frame 0, LOST, frame 0's image again.
+    # The process's first RANSAC PnP pays a one-time set-up, timed apart on
+    # a small problem (first and second call); a first relocalisation on a
+    # throwaway tracker then warms the rest, and the asserted one is timed
+    # warm.
+    img0, d0 = frames[0]
+
+    def lost_tracker():
+        tracker = new_tracker(world, dev)
+        tracker.grab(img0, 0.0, depth_image=d0)
+        tracker.state = type(tracker.state).LOST
+        return tracker
+
+    pnp_first, pnp_second = _pnp_ms(dev, world.K), _pnp_ms(dev, world.K)
+    first = track_frame(lost_tracker(), img0, None, 0.05)
+    tracker = lost_tracker()
+    _reset_counts()
+    with record_pose_calls() as calls:
+        rec = track_frame(tracker, img0, None, 0.05)
+    launches, counts = _read_counts()
+    log(f"tracker reloc (frame 0's image): state {rec.state}, relocalized "
+        f"{counts.get('relocalized', 0)}, ransac_pnp {counts.get('ransac_pnp', 0)}, "
+        f"pose_lm launches {launches} (3x8 in ransac_pnp + 4x10 in "
+        f"{counts.get('pose_opt_frame', 0)} _pose_opt_frame), inliers {rec.inliers}, "
+        f"{rec.ms:.1f} ms warm; the process's first relocalisation {first.ms:.1f} ms, "
+        f"its first ransac_pnp (256 points) {pnp_first:.1f} ms, the second {pnp_second:.1f} ms")
+    if rec.state != "OK" or counts.get("relocalized", 0) != 1:
+        fail("tracker reloc: no relocalisation against keyframe 0 on frame 0's image")
+    if launches != counts.get("ransac_pnp", 0) + counts.get("pose_opt_frame", 0):
+        fail("tracker reloc: pose_lm launches do not match the ransac_pnp and "
+             "_pose_opt_frame calls")
+    paths["tracker_reloc"] = {"frames": 1, "launches": launches, "launches_per_frame": launches,
+                              "ransac_pnp": counts.get("ransac_pnp", 0), "ms": rec.ms,
+                              "ms_first_reloc": first.ms, "pnp_first_ms": pnp_first,
+                              "pnp_second_ms": pnp_second,
+                              "max_abs_err": _hold_to_plain("reloc", calls)}
+    rec1 = track_frame(lost_tracker(), frames[1][0], None, 0.05)
+    log(f"tracker reloc (frame 1, not asserted): state {rec1.state}, relocalized "
+        f"{rec1.counts.get('relocalized', 0)}, {rec1.ms:.1f} ms")
+
+    # the same tracker on the CPU: the first frames of the two sequences
+    for name, recs, depth_frames in (("rgbd", rgbd, range(CPU_FRAMES)), ("fused", fused, {0})):
+        cpu = track_sequence(new_tracker(world, "cpu"), frames[:CPU_FRAMES], depth_frames)
+        diffs = compare_records(recs[:CPU_FRAMES], cpu)
+        worst = max(np.abs(a.pose_cw - b.pose_cw).max() for a, b in zip(recs, cpu))
+        log(f"tracker {name} card vs CPU, {CPU_FRAMES} frames: max|dTcw| {worst:.3g}, "
+            f"inliers {[r.inliers for r in recs[:CPU_FRAMES]]} vs {[r.inliers for r in cpu]}")
+        if diffs:
+            fail(f"tracker {name}: the card disagrees with the CPU: {diffs}")
+    return paths
+
+
 def phase_times(cells: dict) -> dict:
     """Median CUDA-event times (ms) of the batched step per cell, of the
     pinhole step with its pose stage on the plain version, and of the plain
@@ -243,13 +446,23 @@ def main() -> None:
     cells = build_inputs(dev)
     main_path = phase_main_path(cells)
     worst = max(worst, phase_reference(cells, main_path["outs"]))
+    tracker_paths = phase_tracker(dev)
+    worst = max(worst, *(p["max_abs_err"] for p in tracker_paths.values()))
     times = phase_times(cells)
+    per_path = {"batched_step": {"steps": main_path["steps"],
+                                 "launches": main_path["launches"]}, **tracker_paths}
     kernels = [{
         "name": "pose_lm", "route": "cuda",
         "source": "swarmmap_tpu_torch/csrc/pose_lm.cu",
         "replaces": "swarmmap_tpu/ops/pallas_pose.py:251",
-        "launches": main_path["launches"],
+        "launches": sum(p["launches"] for p in per_path.values()),
+        "launches_per_path": per_path,
         "launches_per_step": main_path["launches"] / main_path["steps"],
+        "launches_per_frame": {
+            "batched_step": main_path["launches"] / main_path["steps"],
+            "staged": tracker_paths["tracker_rgbd"]["launches_per_frame"],
+            "fused": tracker_paths["tracker_fused"]["launches_per_frame"],
+            "relocalisation": tracker_paths["tracker_reloc"]["launches_per_frame"]},
         "max_abs_err": worst,
         "ms": times["pose_ms"], "plain_ms": times["pose_plain_ms"],
         "bound_ms": times["pose_bound_ms"], "bound_by": times["pose_bound_by"],

@@ -8,15 +8,22 @@ by `_build.py`; every kernel has a plain PyTorch version beside it, which
 a wrapper takes only for tensors that lie on the CPU.
 
 Layer map (ported so far):
+  core/     the per-agent tracker (tracking.py) and its host state: frames,
+            the map store, the keyframe database
   ops/      device programs: pyramid, FAST, orientation, rBRIEF, matching,
-            LM pose optimisation (CUDA kernel: csrc/pose_lm.cu)
+            LM pose optimisation (CUDA kernel: csrc/pose_lm.cu), RANSAC
+            PnP; the BoW vocabulary
   pipeline  the fused per-frame tracking step, batched over agents
+  native    host C++ (csrc/*.cc, g++ + ctypes): quadtree keypoint budgets,
+            covisibility, keyframe redundancy
   convert   numpy <-> tensor conversion of the JAX package's records
-  utils/    stats, transfers, the synthetic world
+  utils/    config, logging, padding, stats, transfers, the synthetic world
 """
 import torch as _torch
 
 __version__ = "0.1.0"
+
+MAP_BASE = 1_000_000  # global id stride per map (reference: code/include/Map.h:45)
 
 # Full fp32 everywhere.  The exactness arguments of the front end (integral
 # pyramid levels, integer FAST differences, {-1,0,1} BRIEF weights) assume

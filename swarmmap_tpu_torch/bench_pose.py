@@ -15,12 +15,15 @@ N = 1024 sweep), its agreement with the plain version, the roofline bound
 and ptxas's register and spill report.  Prints one JSON line and writes it
 to DIR/bench_pose.json.  Needs a CUDA device.
 
-The helpers (`pose_problems`, `per_launch_ms`, `bound`) are shared with
-chip_smoke.py and the GPU tests.
+The helpers (`pose_problems`, `per_launch_ms`, `bound`,
+`record_pose_calls`, `against_plain`) are shared with chip_smoke.py and
+the GPU tests.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
 import json
 import subprocess
 import sys
@@ -133,6 +136,48 @@ def per_launch_ms(fn, count: int = 50, warmup: int = 3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / count
+
+
+@contextlib.contextmanager
+def record_pose_calls():
+    """Within the block, every call of `pose_opt.pose_optimize_auto` (the
+    dispatcher that every caller goes through) is kept as (its arguments
+    bound to its signature with the defaults applied, its result) in the
+    list that the block receives.  The arguments are kept by reference:
+    every caller hands the dispatcher tensors it does not write again."""
+    from .ops import pose_opt
+
+    inner, calls = pose_opt.pose_optimize_auto, []
+    sig = inspect.signature(inner)
+
+    def recorded(*args, **kw):
+        res = inner(*args, **kw)
+        bound_args = sig.bind(*args, **kw)
+        bound_args.apply_defaults()
+        calls.append((dict(bound_args.arguments), res))
+        return res
+
+    pose_opt.pose_optimize_auto = recorded
+    try:
+        yield calls
+    finally:
+        pose_opt.pose_optimize_auto = inner
+
+
+def against_plain(calls) -> list[dict]:
+    """Each recorded call's result against the plain `pose_optimize` at
+    step_tol = 0 (the kernel's fixed schedule) on the same tensors: its
+    schedule, point slots, max |dTcw| and inlier agreement."""
+    from .ops import pose_opt
+
+    out = []
+    for args, res in calls:
+        plain = pose_opt.pose_optimize(**args, step_tol=0.0)
+        out.append({"schedule": (args["rounds"], args["iters"]),
+                    "n": int(args["valid"].shape[-1]),
+                    "err": float((res.Tcw - plain.Tcw).abs().max()),
+                    "agree": float((res.inliers == plain.inliers).float().mean())})
+    return out
 
 
 def profiled_ms(fn, count: int = 20) -> float | None:

@@ -1,6 +1,6 @@
 """Batched data association.
 
-Port of the main-path part of swarmmap_tpu/ops/matching.py (reference
+Port of the tracker's part of swarmmap_tpu/ops/matching.py (reference
 spec: ORBmatcher — SearchByProjection, rotation-histogram consistency).
 Every search is the same dense program: an [Nq, Nt] candidate mask, one
 Hamming matrix, a masked top-2 per row, optional rotation filter, and the
@@ -125,6 +125,21 @@ def window_mask(
             t_octave[..., None, :] <= oct_hi[..., :, None]
         )
     return m
+
+
+def node_mask(
+    node_q: torch.Tensor, node_t: torch.Tensor,
+    q_valid: torch.Tensor, t_valid: torch.Tensor,
+) -> torch.Tensor:
+    """Same-vocabulary-node gate (the reference's FeatureVector walk in
+    SearchByBoW, ORBmatcher.cc:150).  node_q [..., Nq], node_t [..., Nt]
+    -> [..., Nq, Nt]."""
+    return (
+        (node_q[..., :, None] == node_t[..., None, :])
+        & (node_q[..., :, None] >= 0)
+        & q_valid[..., :, None]
+        & t_valid[..., None, :]
+    )
 
 
 def predicted_octave(

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA device: the hand-written LM pose
-kernel (csrc/pose_lm.cu) against its plain PyTorch version, and the
-batched tracking step on the card against the same step on the CPU.
+kernel (csrc/pose_lm.cu) against its plain PyTorch version, the batched
+tracking step and the per-agent tracker on the card against the same on
+the CPU, and RANSAC PnP with its refinement through the kernel.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -13,8 +14,11 @@ import pytest
 import torch
 
 from swarmmap_tpu_torch import pipeline
-from swarmmap_tpu_torch.bench_pose import pose_problems
-from swarmmap_tpu_torch.ops import pose_kernel, pose_opt
+from swarmmap_tpu_torch.bench_pose import against_plain, pose_problems, record_pose_calls
+from swarmmap_tpu_torch.cells import compare_records, new_tracker, render_frames, track_sequence, tracker_world
+from swarmmap_tpu_torch.ops import pnp, pose_kernel, pose_opt
+from swarmmap_tpu_torch.utils import datasets
+from swarmmap_tpu_torch.utils.stats import STATS
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +104,102 @@ def test_batched_step_on_gpu_matches_cpu(cuda):
     diff = (gpu.n_inliers.cpu() - cpu.n_inliers).abs()
     assert bool((diff <= torch.clamp(0.05 * cpu.n_inliers, min=3)).all())
     assert int(cpu.n_inliers.min()) >= 20
+
+
+# the tracker at the CPU tests' size: 240x320, 400 features, 4 levels
+TRACKER_KW = dict(n_features=400, n_levels=4)
+
+
+@pytest.fixture(scope="module")
+def small_world():
+    world = tracker_world(hw=(240, 320), n_points=600)
+    return world, render_frames(world, 6)
+
+
+@pytest.mark.parametrize("path", ["rgbd", "fused"])
+def test_tracker_on_gpu_matches_cpu(cuda, small_world, path):
+    """Six frames, RGB-D (the staged path) or a depth frame then monocular
+    frames (the fused path): the card's tracker follows the CPU's within
+    the parity bars (|dTcw| < 1e-3; the kernel runs a fixed schedule, the
+    CPU version stops early), and every pose optimisation is one kernel
+    launch."""
+    world, frames = small_world
+    depth_frames = range(6) if path == "rgbd" else {0}
+    cpu = track_sequence(new_tracker(world, "cpu", **TRACKER_KW), frames, depth_frames)
+    STATS.reset()
+    before = pose_kernel.pose_lm_launches
+    gpu = track_sequence(new_tracker(world, cuda, **TRACKER_KW), frames, depth_frames)
+    torch.cuda.synchronize()
+    assert compare_records(cpu, gpu) == []
+    assert [r.state for r in gpu] == ["OK"] * 6
+    calls = STATS.counts["pose_opt_frame"] + STATS.counts.get("fused_step", 0)
+    assert pose_kernel.pose_lm_launches - before == calls
+    if path == "fused":
+        assert gpu[-1].fused_frames == 4 and STATS.counts["fused_step"] == 4
+    else:
+        assert STATS.counts["pose_opt_frame"] == 10
+
+
+@pytest.mark.parametrize("frames", [(0, 1, 2, 3, 25, 26), (0, 1, 2, 3, 40, 41)],
+                         ids=["fused_fallback", "recently_lost"])
+def test_tracker_jumps_on_gpu_match_cpu(cuda, frames):
+    """A jump along the trajectory after a depth bootstrap and monocular
+    frames: the fused step's staged fallback (features fetched late) and
+    the RECENTLY_LOST hold, on the card as on the CPU."""
+    world = tracker_world(hw=(240, 320), n_points=600)
+    seq = [datasets.render_frame(world, i, return_depth=True) for i in frames]
+    cpu = track_sequence(new_tracker(world, "cpu", **TRACKER_KW), seq, {0})
+    gpu = track_sequence(new_tracker(world, cuda, **TRACKER_KW), seq, {0})
+    torch.cuda.synchronize()
+    assert compare_records(cpu, gpu) == []
+    assert [r.state for r in gpu] == ["OK"] * len(frames)
+
+
+def test_tracker_relocalises_on_gpu(cuda, small_world):
+    """LOST after the depth initialisation: frame 1 relocalises, with RANSAC
+    PnP on the card and both refinements (3x8 and 4x10) in the kernel, each
+    launch within the bars of the plain version on the same tensors."""
+    world, frames = small_world
+    tracker = new_tracker(world, cuda, **TRACKER_KW)
+    tracker.grab(frames[0][0], 0.0, depth_image=frames[0][1])
+    tracker.state = type(tracker.state).LOST
+    STATS.reset()
+    before = pose_kernel.pose_lm_launches
+    with record_pose_calls() as calls:
+        tracker.grab(frames[1][0], 0.05)
+    torch.cuda.synchronize()
+    assert tracker.state.name == "OK" and STATS.counts["relocalized"] == 1
+    assert pose_kernel.pose_lm_launches - before == len(calls) == (
+        STATS.counts["ransac_pnp"] + STATS.counts["pose_opt_frame"])
+    rows = against_plain(calls)
+    assert {r["schedule"] for r in rows} == {(3, 8), (4, 10)}
+    for r in rows:
+        assert r["err"] < 1e-3 and r["agree"] > 0.98, r
+
+
+def test_ransac_pnp_on_gpu_matches_cpu(cuda):
+    """The same draws on both devices: the same success and inliers (to
+    1%), poses within 1e-3 (cuSOLVER and LAPACK round the minimal solves
+    differently; the refinement is the kernel on the card)."""
+    rng = np.random.RandomState(0)
+    n = 200
+    P = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 9, n)], 1)
+    K = np.array([[400, 0, 160], [0, 400, 120], [0, 0, 1]], np.float32)
+    pc = P + np.array([0.2, -0.1, 0.3])
+    uv = np.stack([400 * pc[:, 0] / pc[:, 2] + 160, 400 * pc[:, 1] / pc[:, 2] + 120], 1)
+    uv += rng.randn(n, 2)
+    uv[:40] += rng.uniform(-50, 50, (40, 2))
+    pts, uvs, ok = np.zeros((256, 3), np.float32), np.zeros((256, 2), np.float32), np.zeros(256, bool)
+    pts[:n], uvs[:n], ok[:n] = P, uv, True
+    args = [torch.from_numpy(x) for x in (pts, uvs, ok, K)]
+    draws = pnp.draw_indices(args[2], torch.Generator().manual_seed(0))
+    rc = pnp.ransac_pnp_draws(*args, draws, min_inliers=20)
+    before = pose_kernel.pose_lm_launches
+    rg = pnp.ransac_pnp_draws(*(x.to(cuda) for x in args), draws.to(cuda), min_inliers=20)
+    torch.cuda.synchronize()
+    assert pose_kernel.pose_lm_launches == before + 1
+    assert bool(rc.success) and bool(rg.success)
+    assert float((rg.inliers.cpu() == rc.inliers).float().mean()) >= 0.99
+    assert float((rg.Tcw.cpu() - rc.Tcw).abs().max()) < 1e-3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    assert bool(pnp.ransac_pnp(*(x.to(cuda) for x in args), gen, min_inliers=20).success)

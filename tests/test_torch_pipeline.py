@@ -21,7 +21,9 @@ import torch
 from swarmmap_tpu import pipeline as jpipe
 from swarmmap_tpu.utils import datasets as jdata
 from swarmmap_tpu_torch import convert, pipeline
-from swarmmap_tpu_torch.utils import datasets, device
+from swarmmap_tpu_torch.core import frame, keyframe_db, map_store, tracking
+from swarmmap_tpu_torch.ops import vocab
+from swarmmap_tpu_torch.utils import config, datasets, device
 
 REPO = Path(__file__).resolve().parents[1]
 HW = (240, 320)
@@ -146,8 +148,13 @@ def test_synthetic_world_identical(motion, dist):
     lambda: convert.to_tensor(np.zeros(3, np.float32)),
     lambda: convert.track_inputs_from_numpy(pipeline.example_track_inputs(
         hw=HW, n_map_points=64, device="cpu")),
+    lambda: tracking.Tracking(config.Settings.default(), map_store.MapStore(),
+                              keyframe_db.KeyFrameDatabase(vocab.default_vocabulary()),
+                              vocab.default_vocabulary()),
+    lambda: frame.build_frame(np.zeros(HW, np.uint8), 0.0, config.Settings.default().camera,
+                              config.OrbConfig(n_features=256, n_levels=3)),
 ], ids=["realistic_track_inputs", "example_track_inputs", "to_tensor",
-        "track_inputs_from_numpy"])
+        "track_inputs_from_numpy", "Tracking", "build_frame"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device named, an entry point asks for the card and raises
     where there is none: no silent fallback to the CPU."""
@@ -166,22 +173,39 @@ def _env():
 
 
 def test_port_never_reaches_jax():
-    """Guard: with jax, jaxlib and the JAX package made unimportable, the
-    port imports and runs a small tracking step on its plain path."""
+    """Guard: with jax, jaxlib, the JAX package and PyYAML made
+    unimportable, the port imports, runs a small tracking step on its plain
+    path, and tracks three RGB-D frames with its tracker."""
     code = (
         "import sys\n"
-        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'swarmmap_tpu')]:\n"
+        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml')\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in blocked]:\n"
         "    del sys.modules[m]\n"
-        "sys.modules['jax'] = sys.modules['jaxlib'] = sys.modules['swarmmap_tpu'] = None\n"
+        "for m in blocked:\n"
+        "    sys.modules[m] = None\n"
         "import swarmmap_tpu_torch\n"
         "from swarmmap_tpu_torch import convert, pipeline\n"
-        "from swarmmap_tpu_torch.utils import device, stats\n"
+        "from swarmmap_tpu_torch.core import keyframe_db, map_store, tracking\n"
+        "from swarmmap_tpu_torch.ops import vocab\n"
+        "from swarmmap_tpu_torch.utils import config, datasets, device, stats\n"
         "inp = pipeline.realistic_track_inputs(hw=(240, 320), n_map_points=512,"
         " n_features=256, n_levels=3, device='cpu')\n"
         "out = pipeline.tracking_step(inp, n_features=256, n_levels=3, hw=(240, 320))\n"
         "host = device.fetch(out)\n"
         "assert stats.STATS.counts['rpc_fetch'] == 1\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'swarmmap_tpu')"
+        "w = datasets.make_world(seed=4, hw=(240, 320))\n"
+        "K = w.K\n"
+        "s = config.Settings(camera=config.CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]),"
+        " cx=float(K[0, 2]), cy=float(K[1, 2]), fps=20.0),"
+        " orb=config.OrbConfig(n_features=400, n_levels=4))\n"
+        "voc = vocab.default_vocabulary()\n"
+        "t = tracking.Tracking(s, map_store.MapStore(), keyframe_db.KeyFrameDatabase(voc), voc,"
+        " device='cpu')\n"
+        "for i in range(3):\n"
+        "    img, d = datasets.render_frame(w, i, return_depth=True)\n"
+        "    assert t.grab(img, i / 20.0, depth_image=d) is not None\n"
+        "assert t.state.name == 'OK' and t.matches_inliers >= 100, t.matches_inliers\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in blocked"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('inliers', int(host.n_inliers))\n"
