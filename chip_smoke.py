@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the main paths
@@ -17,7 +17,21 @@ one it exits non-zero before doing anything.  The paths:
   frame), and a relocalisation (RANSAC PnP with its 3x8 refinement, then
   4x10), each against ground truth and its first frames against the same
   tracker on the CPU; every pose_lm launch of these paths is held against
-  the plain version on the tensors it was given.
+  the plain version on the tensors it was given;
+- the monocular client (`core/system.py`, `System.track_monocular`) on
+  synthesize_sequence(seed=0, motion="arc") at the same geometry with
+  1500 landmarks, 40 frames: two-view initialisation, the dense initial BA,
+  tracking (fused frames one 2x8 launch, staged frames two 4x10) and local
+  mapping (triangulate + fuse, local BA, culling) of every keyframe; held
+  to initialisation by frame 2, 36 of 40 frames tracked, 3 keyframes
+  mapped, 100 map points, every pose_lm launch to the plain version, and
+  its first 8 frames to the CPU on the card's two-view draws; then 48 runs
+  seeded 0-47, each held to initialisation by frame 2 and 36 frames
+  tracked, and their count with an ATE at or above 5% of the span to the
+  JAX package's rate at this size; with per-frame, per-mapping-stage,
+  per-BA and two-view times.  With --out DIR, the 48 runs' two-view draws
+  go to DIR/mono_draws.npz (`tests/ate_spread_mono.py port --draws` replays
+  them on the CPU).
 
 Kernel times are CUDA events around 50 back-to-back launches divided by
 the count, with the stream held by a sleep kernel while the host enqueues
@@ -34,7 +48,9 @@ library call's.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -87,7 +103,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from swarmmap_tpu_torch import _build
+    """The CUDA kernel, and the host library (g++) that the tracker's
+    quadtree and local mapping's culling call, so no phase's times hold a
+    build."""
+    from swarmmap_tpu_torch import _build, native
 
     t0 = time.perf_counter()
     _build.load("pose_lm")
@@ -96,6 +115,10 @@ def phase_build() -> None:
         f"{rec['seconds']:.2f}s (load {time.perf_counter() - t0:.2f}s) -> {rec['so']}")
     if rec["ptxas"]:
         log(rec["ptxas"])
+    native.get_lib()
+    rec = _build.build_record("native")
+    log(f"build native (host): {'cache' if rec['cached'] else 'g++'} {rec['seconds']:.2f}s "
+        f"-> {rec['so']}")
 
 
 def phase_pose_kernel(dev: torch.device) -> tuple[float, dict]:
@@ -400,6 +423,282 @@ def phase_tracker(dev: torch.device) -> dict:
     return paths
 
 
+MONO_CPU_FRAMES = 8
+MONO_BARS = {"init_by": 2, "tracked": 36, "keyframes": 3, "points": 100, "ate_share": 0.05}
+# One run's ATE is heavy-tailed in the two-view RANSAC draws (the seed
+# changes nothing else).  The JAX package's System on the CPU at this
+# cell's size (tests/ate_spread_mono.py jax, rng_seed 0-47) has MONO_REF_TAIL
+# = (runs at or above 5% of the span, runs).  So every run seeded
+# 0..MONO_ATE_SEEDS-1 is held to initialisation by frame 2 and 36 frames
+# tracked, and the count of runs at or above 5% to the 99th percentile of
+# that rate.
+MONO_ATE_SEEDS = 48
+MONO_REF_TAIL = (22, 48)
+MAPPING_STAGES = ("lm_process_new", "lm_cull_mps", "lm_tri_fuse", "lm_triangulate",
+                  "lm_fuse", "lm_local_ba", "lm_cull_kfs")
+
+
+@contextlib.contextmanager
+def _recorded_ba_calls():
+    """Within the block, every `ops.ba.bundle_adjust` call (the initial BA
+    and each local BA) is timed from an idle card to the end of its work
+    and kept with its problem, its real and bucketed (C, P, O) and its
+    iterations."""
+    from swarmmap_tpu_torch.ops import ba
+
+    inner, calls = ba.bundle_adjust, []
+
+    def recorded(p, iters_a=5, iters_b=10, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(p, iters_a=iters_a, iters_b=iters_b, **kw)
+        torch.cuda.synchronize()
+        calls.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "real": [int(p.cam_valid.sum()), int(p.pt_valid.sum()), int(p.obs_valid.sum())],
+            "bucket": [p.Tcw.shape[0], p.pts.shape[0], p.obs_cam.shape[0]],
+            "iters": [iters_a, iters_b], "problem": p})
+        return res
+
+    ba.bundle_adjust = recorded
+    try:
+        yield calls
+    finally:
+        ba.bundle_adjust = inner
+
+
+def _twoview_ms_pair() -> None:
+    """Host ms of the process's first and second `twoview.reconstruct`, to
+    its fetch, on 300 noisy correspondences of a general scene: the first
+    holds the one-time set-up of the card's batched SVD.  Prints one JSON
+    line; run in a fresh process by phase_mono."""
+    import swarmmap_tpu_torch  # noqa: F401  (precision pins)
+    from swarmmap_tpu_torch.ops import twoview
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    pts = np.stack([rng.uniform(-2, 2, 300), rng.uniform(-1.5, 1.5, 300),
+                    rng.uniform(4, 8, 300)], 1)
+    K = np.array([[450.0, 0, 376], [0, 450.0, 240], [0, 0, 1]])
+    t = np.array([0.6, 0.0, 0.05])
+    uv1 = pts[:, :2] / pts[:, 2:] * 450.0 + K[:2, 2]
+    pc = pts + t
+    uv2 = pc[:, :2] / pc[:, 2:] * 450.0 + K[:2, 2] + rng.normal(0, 0.4, (300, 2))
+    args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (uv1, uv2)]
+    args += [torch.ones(300, dtype=torch.bool, device=dev),
+             torch.tensor(K, dtype=torch.float32, device=dev)]
+    out = []
+    for seed in (0, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = bool(twoview.reconstruct(*args, torch.Generator(device=dev).manual_seed(seed)).success)
+        out.append({"ms": (time.perf_counter() - t0) * 1e3, "success": ok})
+    print(json.dumps(out))
+
+
+def _mono_frames(recs, init: int) -> dict:
+    """ms per frame (median, p90, count) of the init frame, the fused
+    frames that inserted no keyframe, every staged frame (few: the frame
+    after init, fallbacks; a staged frame that inserts a keyframe holds its
+    mapping), and the frames that inserted a keyframe (local mapping runs
+    inside their grab); pose_lm launches per frame over each path's
+    frames."""
+    after = recs[init + 1:]
+    fused = [r for r in after if r.counts.get("fused_step") and "pose_opt_frame" not in r.counts]
+    staged = [r for r in after if "pose_opt_frame" in r.counts]
+
+    def keyframe(r):
+        return r.since_kf == 0 and r.state == "OK"
+
+    def summary(frames, timed):
+        ms = [r.ms for r in timed]
+        return {"frames": len(timed), "ms_median": _pct(ms, 50) if ms else None,
+                "ms_p90": _pct(ms, 90) if ms else None,
+                "pose_lm_per_frame": float(np.mean([r.counts["pose_lm"] for r in frames]))
+                if frames else None}
+
+    return {"init": summary([recs[init]], [recs[init]]),
+            "fused": summary(fused, [r for r in fused if not keyframe(r)]),
+            "staged": summary(staged, staged),
+            "keyframe": summary([r for r in after if keyframe(r)],
+                                [r for r in after if keyframe(r)])}
+
+
+def _seed_run(seed: int, recs: list, system, seq, draws: list) -> dict:
+    """One seeded run of the monocular client: the frame it initialised
+    at, frames tracked, keyframes, map points, its ATE as a share of its
+    own span (inf if it never tracked), and its two-view draws."""
+    from swarmmap_tpu_torch.cells import ate_share
+
+    poses = {i: r.pose_cw for i, r in enumerate(recs) if r.pose_cw is not None}
+    rmse, span = ate_share(poses, seq.world) if poses else (float("inf"), 1.0)
+    init = next((i for i, r in enumerate(recs) if r.state == "OK"), len(recs))
+    return {"seed": seed, "init_frame": init, "tracked": len(poses),
+            "keyframes": system.n_keyframes(), "map_points": system.n_map_points(),
+            "ate_share": rmse / span, "draws": list(draws)}
+
+
+def _tail_bound(n: int, k_ref: int, n_ref: int, q: float = 0.99) -> int:
+    """The least m with P(Binomial(n, k_ref / n_ref) <= m) >= q."""
+    p, cdf = k_ref / n_ref, 0.0
+    for m in range(n + 1):
+        cdf += math.comb(n, m) * p ** m * (1 - p) ** (n - m)
+        if cdf >= q:
+            return m
+    return n
+
+
+def phase_mono(dev: torch.device, out_dir: str | None = None) -> dict:
+    """The monocular client (`System.track_monocular`: two-view
+    initialisation, dense initial BA, tracking, local mapping with its
+    triangulate + fuse and local BA) on `cells.mono_sequence()` on the
+    card, with the counts set to 0 just before and read just after, every
+    pose_lm launch held to the plain version, then its first
+    MONO_CPU_FRAMES frames again on the CPU with the card's RANSAC draws;
+    then MONO_ATE_SEEDS runs seeded 0.. for the ATE (their draws saved to
+    out_dir/mono_draws.npz when out_dir is given)."""
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.cells import (ate_share, mono_sequence, new_system,
+                                          recorded_draws, replayed_draws,
+                                          state_disagreements, track_mono)
+    from swarmmap_tpu_torch.utils.stats import STATS
+
+    out = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._twoview_ms_pair()"],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"mono: the fresh-process twoview timing failed: {out.stderr[-2000:]}")
+    twoview_fresh = json.loads(out.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    seq = mono_sequence()
+    log(f"mono sequence: {seq.world.points.shape[0]} landmarks, {seq.world.hw}, "
+        f"{len(seq)} frames rendered ({time.perf_counter() - t0:.1f}s)")
+    system = new_system(seq, dev)
+    mapper = system.local_mapping
+    pk_ms = []
+    inner_pk = mapper.process_keyframe
+
+    def process_keyframe(k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        inner_pk(k)
+        torch.cuda.synchronize()
+        pk_ms.append((time.perf_counter() - t1) * 1e3)
+
+    mapper.process_keyframe = process_keyframe
+    _reset_counts()
+    with record_pose_calls() as calls, _recorded_ba_calls() as ba_calls, \
+            recorded_draws() as draws:
+        recs = track_mono(system, seq)
+    launches, counts = _read_counts()
+    stage_ms = {k: [1e3 * x for x in STATS.times.get(k, [])] for k in MAPPING_STAGES}
+    twoview_ms = [1e3 * x for x in STATS.times.get("twoview", [])]
+    poses = {i: r.pose_cw for i, r in enumerate(recs) if r.pose_cw is not None}
+    ok = [i for i, r in enumerate(recs) if r.state == "OK"]
+    init = ok[0] if ok else len(recs)
+    rmse, span = ate_share(poses, seq.world) if poses else (float("inf"), 1.0)
+    res = {"init_frame": init, "init_points": recs[init].n_mp if ok else 0,
+           "tracked": len(poses), "frames": len(recs),
+           "keyframes": system.n_keyframes(), "keyframes_inserted": recs[-1].n_kf,
+           "map_points": system.n_map_points(), "process_keyframe_calls": len(pk_ms),
+           "ate_m": rmse, "span_m": span, "ate_share": rmse / span,
+           "launches": launches, "fused_steps": counts.get("fused_step", 0),
+           "pose_opt_frame": counts.get("pose_opt_frame", 0),
+           "merged_fuse_fallback": counts.get("lm_merged_fuse_fallback", 0),
+           "twoview_calls": len(draws)}
+    log("mono: " + json.dumps(res))
+    frames = _mono_frames(recs, min(init, len(recs) - 1))
+    log("mono ms per frame (host clock around track_monocular, ends in a fetch): "
+        + json.dumps(frames))
+    log(f"mono process_keyframe ms per keyframe (median {_pct(pk_ms, 50):.2f}, p90 "
+        f"{_pct(pk_ms, 90):.2f}): {[round(x, 2) for x in pk_ms]}")
+    for k, v in stage_ms.items():
+        if v:
+            log(f"  mapping stage {k}: {len(v)} calls, median {_pct(v, 50):.2f} ms, "
+                f"p90 {_pct(v, 90):.2f} ms, total {sum(v):.1f} ms")
+    for c in ba_calls:
+        log(f"  BA real (C, P, O) {tuple(c['real'])}, bucket {tuple(c['bucket'])}, "
+            f"{c['iters'][0]}+{c['iters'][1]} iterations: {c['ms']:.2f} ms")
+    log(f"mono twoview ms: in the phase {[round(x, 2) for x in twoview_ms]}; a fresh "
+        f"process's first (cold) and second (warm) call on 300 correspondences "
+        f"{[round(x['ms'], 2) for x in twoview_fresh]}")
+    log(f"mono lm_merged_fuse_fallback: {res['merged_fuse_fallback']}")
+
+    # two card runs of the largest local BA problem, bit for bit
+    big = max(ba_calls[1:] or ba_calls, key=lambda c: c["real"][2])
+    from swarmmap_tpu_torch.ops import ba
+
+    r1, r2 = (ba.bundle_adjust(big["problem"], *big["iters"]) for _ in range(2))
+    same = all(torch.equal(getattr(r1, f), getattr(r2, f)) for f in ba.BAResult._fields)
+    diff = float((r1.Tcw - r2.Tcw).abs().max())
+    log(f"mono BA determinism: two card runs of the BA at {tuple(big['real'])} agree bit for "
+        f"bit: {same} (max |dTcw| {diff:.3g})")
+    res.update(frames=frames, process_keyframe_ms=pk_ms, stage_ms=stage_ms,
+               ba_calls=[{k: c[k] for k in ("ms", "real", "bucket", "iters")} for c in ba_calls],
+               twoview_ms=twoview_ms, twoview_fresh=twoview_fresh, ba_bitwise_equal=same)
+
+    # the first frames again on the CPU, on the card run's two-view draws
+    t0 = time.perf_counter()
+    with replayed_draws(list(draws)):
+        cpu = track_mono(new_system(seq, "cpu"), seq, MONO_CPU_FRAMES)
+    diffs = state_disagreements(recs[:MONO_CPU_FRAMES], cpu)
+    worst = max((float(np.abs(a.pose_cw - b.pose_cw).max()) for a, b in
+                 zip(recs, cpu) if a.pose_cw is not None and b.pose_cw is not None), default=0.0)
+    log(f"mono card vs CPU, {MONO_CPU_FRAMES} frames ({time.perf_counter() - t0:.1f}s): "
+        f"max|dTcw| {worst:.3g}, states {[r.state for r in cpu]}, keyframes / points "
+        f"{[(r.n_kf, r.n_mp) for r in recs[:MONO_CPU_FRAMES]]} vs {[(r.n_kf, r.n_mp) for r in cpu]}")
+
+    # every seeded run (the run above is rng_seed 0), its ATE over its own span
+    t0 = time.perf_counter()
+    runs = [_seed_run(0, recs, system, seq, draws)]
+    for seed in range(1, MONO_ATE_SEEDS):
+        s = new_system(seq, dev, rng_seed=seed)
+        with recorded_draws() as d:
+            run = track_mono(s, seq)
+        runs.append(_seed_run(seed, run, s, seq, d))
+    shares = [r["ate_share"] for r in runs]
+    above = [r["seed"] for r in runs if not r["ate_share"] < MONO_BARS["ate_share"]]
+    tail_max = _tail_bound(MONO_ATE_SEEDS, *MONO_REF_TAIL)
+    res.update(ate_share_per_seed=shares, ate_share_median=float(np.median(shares)),
+               ate_seeds_above=len(above), ate_seeds_above_max=tail_max)
+    for r in runs:
+        log("  mono " + json.dumps({k: v for k, v in r.items() if k != "draws"}))
+    log(f"mono ATE share of its span, rng_seed 0-{MONO_ATE_SEEDS - 1} "
+        f"({time.perf_counter() - t0:.1f}s): median {np.median(shares):.4f}; at or above "
+        f"{MONO_BARS['ate_share']}: {len(above)} of {MONO_ATE_SEEDS} {above} (the JAX "
+        f"package: {MONO_REF_TAIL[0]} of {MONO_REF_TAIL[1]}; bar: at most {tail_max})")
+    if out_dir:
+        np.savez(f"{out_dir}/mono_draws.npz", **{f"{r['seed']}_{j}": d.numpy()
+                                                 for r in runs for j, d in enumerate(r["draws"])})
+
+    bars, failed = MONO_BARS, []
+    if not init <= bars["init_by"]:
+        failed.append(f"initialised at frame {init}, not by frame {bars['init_by']}")
+    if len(poses) < bars["tracked"]:
+        failed.append(f"{len(poses)} of {len(recs)} frames tracked")
+    if system.n_keyframes() < bars["keyframes"] or len(pk_ms) < bars["keyframes"]:
+        failed.append(f"{system.n_keyframes()} keyframes, process_keyframe ran {len(pk_ms)} times")
+    if not system.n_map_points() > bars["points"]:
+        failed.append(f"{system.n_map_points()} map points")
+    short = [r["seed"] for r in runs
+             if not (r["init_frame"] <= bars["init_by"] and r["tracked"] >= bars["tracked"])]
+    if short:
+        failed.append(f"rng_seed {short} did not initialise by frame {bars['init_by']} or "
+                      f"tracked fewer than {bars['tracked']} frames")
+    if len(above) > tail_max:
+        failed.append(f"{len(above)} of {MONO_ATE_SEEDS} runs at or above ATE share "
+                      f"{bars['ate_share']}, more than {tail_max}")
+    if launches != res["fused_steps"] + res["pose_opt_frame"] or launches < len(poses) - init:
+        failed.append(f"{launches} pose_lm launches for {res['fused_steps']} fused steps and "
+                      f"{res['pose_opt_frame']} _pose_opt_frame calls")
+    if diffs:
+        failed.append(f"the card disagrees with the CPU: {diffs}")
+    if failed:
+        fail("mono: " + "; ".join(failed))
+    res["max_abs_err"] = _hold_to_plain("mono", calls)
+    res["launches_per_frame"] = launches / len(recs)
+    return res
+
+
 def phase_times(cells: dict) -> dict:
     """Median CUDA-event times (ms) of the batched step per cell, of the
     pinhole step with its pose stage on the plain version, and of the plain
@@ -447,6 +746,9 @@ def main() -> None:
     main_path = phase_main_path(cells)
     worst = max(worst, phase_reference(cells, main_path["outs"]))
     tracker_paths = phase_tracker(dev)
+    mono = phase_mono(dev, sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv else None)
+    tracker_paths["mono"] = {k: mono[k] for k in (
+        "frames", "launches", "launches_per_frame", "max_abs_err")}
     worst = max(worst, *(p["max_abs_err"] for p in tracker_paths.values()))
     times = phase_times(cells)
     per_path = {"batched_step": {"steps": main_path["steps"],
@@ -462,7 +764,9 @@ def main() -> None:
             "batched_step": main_path["launches"] / main_path["steps"],
             "staged": tracker_paths["tracker_rgbd"]["launches_per_frame"],
             "fused": tracker_paths["tracker_fused"]["launches_per_frame"],
-            "relocalisation": tracker_paths["tracker_reloc"]["launches_per_frame"]},
+            "relocalisation": tracker_paths["tracker_reloc"]["launches_per_frame"],
+            "mono_fused": mono["frames"]["fused"]["pose_lm_per_frame"],
+            "mono_staged": mono["frames"]["staged"]["pose_lm_per_frame"]},
         "max_abs_err": worst,
         "ms": times["pose_ms"], "plain_ms": times["pose_plain_ms"],
         "bound_ms": times["pose_bound_ms"], "bound_by": times["pose_bound_by"],

@@ -8,11 +8,13 @@ by `_build.py`; every kernel has a plain PyTorch version beside it, which
 a wrapper takes only for tensors that lie on the CPU.
 
 Layer map (ported so far):
-  core/     the per-agent tracker (tracking.py) and its host state: frames,
+  core/     the single-agent client (system.py): the tracker (tracking.py),
+            local mapping (local_mapping.py) and their host state: frames,
             the map store, the keyframe database
   ops/      device programs: pyramid, FAST, orientation, rBRIEF, matching,
             LM pose optimisation (CUDA kernel: csrc/pose_lm.cu), RANSAC
-            PnP; the BoW vocabulary
+            PnP, two-view initialisation, triangulation, dense bundle
+            adjustment; the BoW vocabulary
   pipeline  the fused per-frame tracking step, batched over agents
   native    host C++ (csrc/*.cc, g++ + ctypes): quadtree keypoint budgets,
             covisibility, keyframe redundancy

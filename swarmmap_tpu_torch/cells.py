@@ -13,9 +13,18 @@ the same geometry and ORB settings with 1500 landmarks (`tracker_world`,
 a depth bootstrap the fused one.  `track_sequence` drives a tracker over
 rendered frames and keeps one `FrameRecord` per frame; `compare_records`
 holds two runs to the tracker's parity bars.
+
+The monocular client (`core/system.py`, tracking with local mapping) runs
+on `mono_sequence()`: synthesize_sequence(seed=0, motion="arc") with 1500
+landmarks, 40 frames, at the same geometry and ORB settings
+(`new_system`, `track_mono`).  Its two-view initialisation draws RANSAC
+hypotheses from the tracker's generator; `recorded_draws` and
+`replayed_draws` let a second run on another device (or the JAX package's
+draws) take the same ones.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -48,23 +57,67 @@ def tracker_world(hw: tuple[int, int] = HW, n_points: int = TRACKER_LANDMARKS):
     return datasets.make_world(n_points=n_points, hw=hw, seed=TRACKER_SEED)
 
 
-def new_tracker(world, device, n_features: int = N_FEATURES, n_levels: int = N_LEVELS):
-    """A tracker on an empty map with the world's pinhole camera at 20 fps,
-    on `device`."""
-    from .core import keyframe_db, map_store, tracking
-    from .ops import vocab
+def settings_for(world, n_features: int = N_FEATURES, n_levels: int = N_LEVELS):
+    """Settings of the world's pinhole camera at 20 fps with these ORB
+    settings."""
     from .utils import config
 
     K = world.K
-    settings = config.Settings(
+    return config.Settings(
         camera=config.CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]),
                                    cx=float(K[0, 2]), cy=float(K[1, 2]), fps=20.0,
                                    width=world.hw[1], height=world.hw[0]),
         orb=config.OrbConfig(n_features=n_features, n_levels=n_levels),
     )
+
+
+def new_tracker(world, device, n_features: int = N_FEATURES, n_levels: int = N_LEVELS):
+    """A tracker on an empty map with the world's pinhole camera at 20 fps,
+    on `device`."""
+    from .core import keyframe_db, map_store, tracking
+    from .ops import vocab
+
     voc = vocab.default_vocabulary()
-    return tracking.Tracking(settings, map_store.MapStore(),
+    return tracking.Tracking(settings_for(world, n_features, n_levels), map_store.MapStore(),
                              keyframe_db.KeyFrameDatabase(voc), voc, device=device)
+
+
+# the monocular client's cell: a System mapping a synthetic arc sequence
+MONO_FRAMES = 40
+MONO_LANDMARKS = 1500
+MONO_SEED = 0
+
+
+def mono_sequence(hw: tuple[int, int] = HW, n_points: int = MONO_LANDMARKS,
+                  n_frames: int = MONO_FRAMES):
+    """synthesize_sequence(seed=0, motion="arc"): the monocular cell's
+    frames with the ground truth attached (`.world`)."""
+    from .utils import datasets
+
+    return datasets.synthesize_sequence(n_frames=n_frames, hw=hw, seed=MONO_SEED,
+                                        n_points=n_points, motion="arc")
+
+
+def new_system(seq, device, n_features: int = N_FEATURES, n_levels: int = N_LEVELS,
+               rng_seed: int = 0):
+    """A monocular System (tracking + local mapping) on an empty map with
+    the sequence's camera, on `device`, its RANSAC draws seeded by
+    rng_seed."""
+    from .core.system import System
+
+    return System(settings_for(seq.world, n_features, n_levels), rng_seed=rng_seed,
+                  device=device)
+
+
+def ate_share(poses: dict, world) -> tuple[float, float]:
+    """(ATE RMSE after Sim(3) alignment, span of the ground-truth
+    positions) of {frame index: Tcw}."""
+    from .utils.trajectory import ate_rmse
+
+    idx = sorted(poses)
+    est = np.stack([np.linalg.inv(poses[i])[:3, 3] for i in idx])
+    gt = world.poses_wc[idx][:, :3, 3]
+    return ate_rmse(est, gt), float(np.linalg.norm(gt.max(0) - gt.min(0)))
 
 
 class FrameRecord(NamedTuple):
@@ -109,17 +162,30 @@ def _launches() -> int:
     return pose_kernel.pose_lm_launches
 
 
-def track_frame(tracker, image, depth, timestamp: float) -> FrameRecord:
-    """One grab, with its host time, its STATS counts and the pose_lm
-    launches it made (`counts["pose_lm"]`)."""
+def timed_record(grab, tracker) -> FrameRecord:
+    """Run grab(), then the record of `tracker` with grab's host time, its
+    STATS counts and the pose_lm launches it made (`counts["pose_lm"]`)."""
     before, launches = dict(STATS.counts), _launches()
     t0 = time.perf_counter()
-    tracker.grab(image, timestamp, depth_image=depth)
+    grab()
     ms = (time.perf_counter() - t0) * 1e3
     counts = {k: v - before.get(k, 0) for k, v in STATS.counts.items()
               if v != before.get(k, 0)}
     counts["pose_lm"] = _launches() - launches
     return frame_record(tracker, ms, counts)
+
+
+def track_frame(tracker, image, depth, timestamp: float) -> FrameRecord:
+    """One grab, timed and counted (`timed_record`)."""
+    return timed_record(lambda: tracker.grab(image, timestamp, depth_image=depth), tracker)
+
+
+def track_mono(system, seq, n: int | None = None) -> list[FrameRecord]:
+    """`System.track_monocular` on the first n frames of `seq` at their
+    timestamps, one timed and counted record per frame."""
+    return [timed_record(lambda i=i: system.track_monocular(seq.read(i), seq.timestamps[i]),
+                   system.tracking)
+            for i in range(len(seq) if n is None else n)]
 
 
 def track_sequence(tracker, frames, depth_frames) -> list[FrameRecord]:
@@ -156,6 +222,65 @@ def compare_records(a: list[FrameRecord], b: list[FrameRecord],
     """`frame_disagreements` of two runs of one sequence, frame by frame."""
     return [f"frame {i}: {d}" for i, (x, y) in enumerate(zip(a, b))
             for d in frame_disagreements(x, y, tcw_tol)]
+
+
+@contextlib.contextmanager
+def recorded_draws():
+    """Record, as CPU tensors in call order, every set of two-view RANSAC
+    draws (`twoview.draw_indices`) made inside the block."""
+    from .ops import twoview
+
+    draws, orig = [], twoview.draw_indices
+
+    def record(valid, generator):
+        d = orig(valid, generator)
+        draws.append(d.cpu())
+        return d
+
+    twoview.draw_indices = record
+    try:
+        yield draws
+    finally:
+        twoview.draw_indices = orig
+
+
+@contextlib.contextmanager
+def replayed_draws(draws: list):
+    """Inside the block, two-view initialisation takes its RANSAC draws
+    from `draws` (popped from the front, moved to the points' device)
+    instead of the tracker's generator: the card's and the CPU's
+    generators give different streams for one seed, and the JAX package
+    draws from its own keys."""
+    from .ops import twoview
+
+    orig = twoview.draw_indices
+
+    def replay(valid, generator):
+        return torch.as_tensor(np.array(draws.pop(0))).long().to(valid.device)
+
+    twoview.draw_indices = replay
+    try:
+        yield
+    finally:
+        twoview.draw_indices = orig
+
+
+def state_disagreements(a: list[FrameRecord], b: list[FrameRecord],
+                        tcw_tol: float = 1e-3) -> list[str]:
+    """Where two runs of one sequence part on the monocular client's
+    per-frame bars: the same state, keyframe and map-point counts, and
+    |dTcw| < tcw_tol.  Empty when they agree."""
+    out = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        key = ("state", "n_kf", "n_mp")
+        if [getattr(x, k) for k in key] != [getattr(y, k) for k in key]:
+            out.append(f"frame {i}: state/n_kf/n_mp {[getattr(x, k) for k in key]} vs "
+                       f"{[getattr(y, k) for k in key]}")
+        elif (x.pose_cw is None) != (y.pose_cw is None):
+            out.append(f"frame {i}: pose present in one run only")
+        elif x.pose_cw is not None and not np.abs(x.pose_cw - y.pose_cw).max() < tcw_tol:
+            out.append(f"frame {i}: |dTcw| {np.abs(x.pose_cw - y.pose_cw).max():.3g}")
+    return out
 
 
 def build_cells(dev: torch.device) -> dict:

@@ -16,9 +16,12 @@ pose stage is the hand-written kernel (csrc/pose_lm.cu) on both schedules,
 result goes through `utils.device.fetch`, one per logical step, counted
 as `rpc_fetch`.
 
-Not ported yet, and raising NotImplementedError: monocular two-view
-initialisation with its bundle adjustment (ROADMAP queue 1, item 13) and
-dynamic-object filtering (item 19).
+Monocular frames before the map exists go through two-view initialisation
+(`ops/twoview.py`) and a dense BA of the two first keyframes
+(`ops/ba.py`); every later keyframe goes to `local_mapping` when one is
+attached (`core/local_mapping.py`, `core/system.py` wires it).  Not ported
+yet, and raising NotImplementedError: dynamic-object filtering (ROADMAP
+queue 1, item 19).
 """
 from __future__ import annotations
 
@@ -30,9 +33,10 @@ import numpy as np
 import torch
 
 from .. import convert, pipeline
-from ..ops import matching, pnp, pose_opt
+from ..ops import ba as ba_ops
+from ..ops import matching, pnp, pose_opt, twoview
 from ..utils.config import Settings
-from ..utils.device import default_device, fetch
+from ..utils.device import default_device, fetch, to_device
 from ..utils.padding import bucket_size, pad_rows, pad_slots
 from ..utils.logging import get_logger
 from ..utils.stats import STATS
@@ -164,7 +168,8 @@ class Tracking:
         self.fused_frames = 0     # frames fully tracked by the fused program
         self.lost_count = 0
         self.grace = 0  # consecutive RECENTLY_LOST frames
-        # RANSAC hypotheses (relocalization) draw from this generator
+        # RANSAC hypotheses (two-view initialisation, relocalization) draw
+        # from this generator
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
         # STS signals
@@ -175,17 +180,8 @@ class Tracking:
 
     # ------------------------------------------------------------------ utils
     def _t(self, x) -> torch.Tensor:
-        """Host array -> tensor on the tracker's device, with the types
-        that the JAX package's device arrays get: float64 -> float32,
-        int64 -> int32, uint32 descriptor words -> int32 of the same bits."""
-        a = np.asarray(x)
-        if a.dtype == np.float64:
-            a = a.astype(np.float32)
-        elif a.dtype == np.int64:
-            a = a.astype(np.int32)
-        elif a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.tensor(a, device=self.device)
+        """Host array -> tensor on the tracker's device (`to_device`)."""
+        return to_device(x, self.device)
 
     @property
     def scale_factor(self) -> float:
@@ -503,20 +499,103 @@ class Tracking:
         return pc @ Twc[:3, :3].T + Twc[:3, 3]
 
     def _monocular_initialization(self, frame: Frame):
-        """Two-view bootstrap (reference: Tracking::MonocularInitialization)."""
-        raise NotImplementedError(
-            "monocular two-view initialisation (ops/twoview.py) is not ported "
-            "yet (ROADMAP queue 1, item 13): start the tracker from a depth "
-            "frame (depth_image or kp_depth)")
+        """Two-view bootstrap (reference: Tracking::MonocularInitialization):
+        window-match the reference frame to this one, then one batched
+        RANSAC of F and H (`twoview.reconstruct`, its draws from the
+        tracker's generator)."""
+        if self.init_frame is None or frame.valid.sum() < self.p.init_min_matches:
+            if frame.valid.sum() >= self.p.init_min_matches:
+                self.init_frame = frame
+            return
+        ref = self.init_frame
+        t = self._t
+        mask = matching.window_mask(
+            t(ref.xy), t(frame.xy), self.p.init_window, t(ref.valid), t(frame.valid),
+        )
+        m = matching.masked_match(
+            t(ref.desc), t(frame.desc), mask,
+            max_dist=matching.TH_LOW, ratio=0.9,
+            angle_q=t(ref.angle), angle_t=t(frame.angle), check_rotation=True,
+        )
+        idx, valid = fetch(m.idx, m.valid)
+        if valid.sum() < self.p.init_min_matches:
+            self.init_frame = frame  # slide the reference forward
+            return
+        with STATS.stage("twoview"):
+            rec = twoview.reconstruct(
+                t(ref.xy), t(frame.xy[idx]), t(valid), t(frame.K), self._gen)
+            ok, inliers, R21, t21, pts3d = fetch(
+                rec.success, rec.inliers, rec.R21, rec.t21, rec.pts3d)
+        if not bool(ok):
+            return
+        self._create_initial_map(ref, frame, idx, inliers, R21, t21, pts3d)
 
     def _create_initial_map(self, ref, frame, match_idx, inliers, R21, t21, pts3d):
-        raise NotImplementedError(
-            "the two-view initial map is not ported yet (ROADMAP queue 1, item 13)")
+        """Two keyframes, one map point per triangulated inlier, median
+        depth scaled to 1, then a dense BA of both views
+        (reference: Tracking::CreateInitialMapMonocular)."""
+        st = self.store
+        ref.pose_cw = np.eye(4, dtype=np.float32)
+        T2 = np.eye(4, dtype=np.float32)
+        T2[:3, :3] = R21
+        T2[:3, 3] = t21
+        frame.pose_cw = T2
+
+        # median-depth normalization (Tracking::CreateInitialMapMonocular)
+        depths = pts3d[inliers][:, 2]
+        med = float(np.median(depths)) if len(depths) else 1.0
+        if med <= 0:
+            return
+        scale = 1.0 / med
+        frame.pose_cw[:3, 3] *= scale
+        pts3d = pts3d * scale
+
+        k1 = self._insert_keyframe(ref)
+        k2 = self._insert_keyframe(frame)
+        for i in np.where(inliers)[0]:
+            j = match_idx[i]
+            mp = st.add_map_point(pts3d[i], frame.desc[j], ref_kf=k2)
+            st.add_observation(mp, k1, int(i))
+            st.add_observation(mp, k2, int(j))
+            st.compute_distinctive_descriptor(mp)
+            st.update_normal_and_depth(mp, self.scale_factor, self.n_levels)
+            frame.mp[j] = mp
+            ref.mp[i] = mp
+        st.update_connections(k1)
+        st.update_connections(k2)
+
+        # full BA on the 2-view map (reference runs GBA(20))
+        self._initial_ba(k1, k2)
+        self.ref_kf = k2
+        self.last_kf_frame_id = frame.frame_id
+        self.state = TrackingState.OK
+        _log.info("map initialized: %d points", int(st.mp_alive[: st.n_mp].sum()))
 
     def _initial_ba(self, k1: int, k2: int):
-        raise NotImplementedError(
-            "the initial dense bundle adjustment (ops/ba.py) is not ported yet "
-            "(ROADMAP queue 1, item 13)")
+        """Dense BA of the two initial keyframes, the first fixed, 10+10
+        LM iterations."""
+        st = self.store
+        mps = st.alive_mp_slots()
+        if len(mps) < 10:
+            return
+        obs_cam, obs_pt, obs_uv, obs_is2 = [], [], [], []
+        for local_i, m in enumerate(mps):
+            for k, kp in st.obs[int(m)].items():
+                obs_cam.append(0 if k == k1 else 1)
+                obs_pt.append(local_i)
+                obs_uv.append(st.kf_kp_uv[k, kp])
+                obs_is2.append(1.0 / frame_sigma2(st, k, kp, self.scale_factor))
+        prob = ba_ops.build_padded_problem(
+            np.stack([st.kf_pose_cw[k1], st.kf_pose_cw[k2]]),
+            np.stack([st.kf_K[k1], st.kf_K[k2]]),
+            np.array([True, False]),
+            st.mp_pos[mps], obs_cam, obs_pt, obs_uv, obs_is2,
+            device=self.device,
+        )
+        res = ba_ops.bundle_adjust(prob, iters_a=10, iters_b=10, mode="dense")
+        Tcw_np, pts_np = fetch(res.Tcw, res.pts)
+        st.kf_pose_cw[k2] = Tcw_np[1]
+        st.mp_pos[mps] = pts_np[: len(mps)]
 
     def _insert_keyframe(self, frame: Frame) -> int:
         st = self.store

@@ -142,6 +142,29 @@ def node_mask(
     )
 
 
+def epipolar_mask(
+    uv1: torch.Tensor,
+    uv2: torch.Tensor,
+    F12: torch.Tensor,
+    sigma2_2: torch.Tensor,
+    v1: torch.Tensor,
+    v2: torch.Tensor,
+) -> torch.Tensor:
+    """Point-to-epipolar-line gate (reference: CheckDistEpipolarLine,
+    ORBmatcher.cc): squared distance < 3.84 * sigma^2 of kp2's octave.
+    uv1 [..., N1, 2], uv2 [..., N2, 2], F12 [..., 3, 3] -> [..., N1, N2]."""
+    ones = torch.ones_like(uv1[..., :1])
+    l = torch.cat([uv1, ones], -1) @ F12  # lines in image 2: [..., N1, 3]
+    num = (
+        l[..., :, None, 0] * uv2[..., None, :, 0]
+        + l[..., :, None, 1] * uv2[..., None, :, 1]
+        + l[..., :, None, 2]
+    )
+    den = l[..., 0:1] ** 2 + l[..., 1:2] ** 2
+    dsq = num**2 / torch.clamp(den, min=1e-12)
+    return (dsq < 3.84 * sigma2_2[..., None, :]) & v1[..., :, None] & v2[..., None, :]
+
+
 def predicted_octave(
     dist: torch.Tensor, max_dist: torch.Tensor, scale: float, n_levels: int
 ) -> torch.Tensor:

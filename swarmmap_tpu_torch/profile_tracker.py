@@ -5,11 +5,15 @@
 Tracks the tracker cells of `cells.py` (make_world(seed=4), 480x752, 1000
 features, 8 levels, 1500 landmarks): 12 RGB-D frames (the staged path) and
 a depth frame then 12 monocular frames (the fused path), and profiles one
-late frame of each path under torch.profiler.  Prints one JSON line per
-path: the frame's wall time, its summed device time, the wall time not
-covered by device work, the device's idle share, kernel launches and
-fetches; writes each profiler table, sorted by
-device time, to DIR/profile_tracker_<path>.txt.  Needs a CUDA device.
+late frame of each path under torch.profiler.  Then runs the monocular
+client (`cells.mono_sequence()`, `System.track_monocular`) for 12 frames,
+holds back the next keyframe from local mapping, and profiles its
+`LocalMapping.process_keyframe` (triangulate + fuse, local BA, culling).
+Prints one JSON line per path: the wall time, its summed device time, the
+wall time not covered by device work, the device's idle share, kernel
+launches, `pose_lm` launches and fetches; writes each profiler table,
+sorted by device time, to DIR/profile_tracker_<path>.txt.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -20,18 +24,20 @@ from pathlib import Path
 
 import torch
 
-from .cells import new_tracker, render_frames, track_frame, track_sequence, tracker_world
+from .cells import (timed_record, mono_sequence, new_system, new_tracker, render_frames, track_frame,
+                    track_mono, track_sequence, tracker_world)
 from .utils.stats import STATS
 
 
-def _profile_frame(tracker, image, depth, ts, name: str, out: Path) -> dict:
+def _profile(run, name: str, out: Path) -> dict:
+    """Profile run(), which returns a FrameRecord of its work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     fetches = STATS.counts["rpc_fetch"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rec = track_frame(tracker, image, depth, ts)
+        rec = run()
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     kernels = [e for e in dev_events if "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower()]
@@ -64,9 +70,29 @@ def main() -> None:
         tracker = new_tracker(world, dev)
         track_sequence(tracker, frames[:12], depth_frames)
         img, d = frames[12]
-        res = _profile_frame(tracker, img, d if 12 in depth_frames else None, 0.6, name, out)
+        depth = d if 12 in depth_frames else None
+        res = _profile(lambda: track_frame(tracker, img, depth, 0.6), name, out)
         res["device"] = torch.cuda.get_device_name(0)
         print(json.dumps(res))
+
+    # a mapped keyframe: the first keyframe after frame 12, held back from
+    # local mapping and then mapped under the profiler
+    seq = mono_sequence()
+    system = new_system(seq, dev)
+    mapper = system.local_mapping
+    track_mono(system, seq, 12)
+    held = []
+    mapper.insert_keyframe = held.append
+    i = 12
+    while not held and i < len(seq):
+        system.track_monocular(seq.read(i), seq.timestamps[i])
+        i += 1
+    if not held:
+        sys.exit("profile_tracker: no keyframe inserted after frame 12")
+    res = _profile(lambda: timed_record(lambda: mapper.process_keyframe(held[0]), system.tracking),
+                   "mapped_keyframe", out)
+    res.update(device=torch.cuda.get_device_name(0), keyframe=held[0], frame=i - 1)
+    print(json.dumps(res))
 
 
 if __name__ == "__main__":

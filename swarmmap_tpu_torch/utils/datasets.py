@@ -4,8 +4,10 @@ Copy of the synthetic part of swarmmap_tpu/utils/datasets.py, which the
 port cannot import on a machine without JAX (every module of the JAX
 package loads JAX first).  It renders a fixed 3D landmark field from a
 smooth camera trajectory, and gives arrays identical to the JAX package's
-for the same arguments.  The moving-flock option (`n_dynamic > 0`) is not
-ported yet.
+for the same arguments, and `synthesize_sequence` wraps them as an
+`ImageSequence` with the ground truth attached.  The moving-flock option
+(`n_dynamic > 0`) and the file loaders (EuRoC, TUM, KITTI) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -185,3 +187,38 @@ def render_frame(
     if return_depth:
         return out, depth
     return out
+
+
+@dataclasses.dataclass
+class ImageSequence:
+    """A sequence of grayscale frames held in memory (the synthetic part
+    of the JAX package's ImageSequence)."""
+    timestamps: np.ndarray     # [N] float64 seconds
+    frames: np.ndarray         # [N,H,W] uint8
+    world: SyntheticWorld | None = None  # ground truth
+
+    def __len__(self) -> int:
+        return len(self.timestamps)
+
+    def read(self, i: int) -> np.ndarray:
+        """Return grayscale uint8 [H,W]."""
+        return self.frames[i]
+
+
+def synthesize_sequence(
+    n_frames: int = 80,
+    hw: tuple[int, int] = (480, 640),
+    seed: int = 0,
+    agent: int = 0,
+    fps: float = 20.0,
+    motion: str = "arc",
+    n_points: int = 600,
+    focal: float | None = None,
+    dist: np.ndarray | None = None,
+) -> ImageSequence:
+    """`n_frames` rendered frames of `make_world`, at `fps`, with the
+    world attached as `.world`."""
+    world = make_world(n_points=n_points, n_frames=n_frames, hw=hw, seed=seed,
+                       agent=agent, motion=motion, focal=focal, dist=dist)
+    frames = np.stack([render_frame(world, i) for i in range(n_frames)])
+    return ImageSequence(timestamps=np.arange(n_frames) / fps, frames=frames, world=world)

@@ -28,6 +28,20 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device`, with the types that the JAX
+    package's device arrays get: float64 -> float32, int64 -> int32,
+    uint32 descriptor words -> int32 of the same bits."""
+    a = np.asarray(x)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    elif a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.tensor(a, device=device)
+
+
 def _map(fn, tree, leaf=torch.Tensor):
     """Apply fn to every `leaf` of a tree of NamedTuples, tuples, lists
     and dicts; other leaves (None, ints) pass through."""

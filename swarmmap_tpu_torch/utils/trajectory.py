@@ -1,9 +1,13 @@
-"""Rotation <-> quaternion, for the map's guarded local->world blend.
+"""Trajectory output and ATE evaluation, and rotation <-> quaternion.
 
-Copy of `rot_to_quat` and `quat_to_rot` from
-swarmmap_tpu/utils/trajectory.py (`MapStore.set_transform` needs them).
+Copy of swarmmap_tpu/utils/trajectory.py's `rot_to_quat`, `quat_to_rot`
+(`MapStore.set_transform` needs them), `save_tum` (the reference's TUM
+writer, System::SaveKeyFrameTrajectoryTUM) and the evo-equivalent
+`umeyama_align` + `ate_rmse`.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -45,3 +49,43 @@ def quat_to_rot(q: np.ndarray) -> np.ndarray:
         ]
     )
 
+
+
+def save_tum(path: str | Path, timestamps: np.ndarray, poses_wc: np.ndarray) -> None:
+    """poses_wc: [N,4,4] camera-to-world (Twc), matching the reference output."""
+    lines = []
+    for ts, T in zip(timestamps, poses_wc):
+        q = rot_to_quat(T[:3, :3])
+        t = T[:3, 3]
+        lines.append(
+            f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+            f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}"
+        )
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def umeyama_align(
+    src: np.ndarray, dst: np.ndarray, with_scale: bool = True
+) -> tuple[float, np.ndarray, np.ndarray]:
+    """Similarity (s, R, t) minimizing ||dst - (s R src + t)||^2  [Umeyama 1991]."""
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    xs, xd = src - mu_s, dst - mu_d
+    cov = xd.T @ xs / len(src)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    var_s = (xs**2).sum() / len(src)
+    s = float(np.trace(np.diag(D) @ S) / var_s) if with_scale else 1.0
+    t = mu_d - s * R @ mu_s
+    return s, R, t
+
+
+def ate_rmse(
+    est_t: np.ndarray, gt_t: np.ndarray, with_scale: bool = True
+) -> float:
+    """Absolute trajectory error RMSE after Sim(3) alignment (evo-style)."""
+    s, R, t = umeyama_align(est_t, gt_t, with_scale)
+    aligned = est_t @ (s * R).T + t
+    return float(np.sqrt(((aligned - gt_t) ** 2).sum(axis=1).mean()))

@@ -17,6 +17,7 @@ from swarmmap_tpu.ops import pyramid as jpyr
 from swarmmap_tpu.utils import datasets as jdata
 from swarmmap_tpu_torch import convert
 from swarmmap_tpu_torch.ops import brief, extractor, fast, orientation, pyramid
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HW = (240, 320)
 N_LEVELS = 3

@@ -203,3 +203,51 @@ def test_ransac_pnp_on_gpu_matches_cpu(cuda):
     assert float((rg.Tcw.cpu() - rc.Tcw).abs().max()) < 1e-3
     gen = torch.Generator(device=cuda).manual_seed(0)
     assert bool(pnp.ransac_pnp(*(x.to(cuda) for x in args), gen, min_inliers=20).success)
+
+
+def test_monocular_system_on_gpu_matches_cpu(cuda):
+    """The monocular client (two-view initialisation, dense BA, local
+    mapping) at 240x320, 400 features, 4 levels: 12 frames on the card,
+    then on the CPU with the card's two-view draws replayed; the same
+    states, keyframe and point counts, |dTcw| < 1e-3; every pose_lm launch
+    within the plain version's bars."""
+    from swarmmap_tpu_torch.cells import (mono_sequence, new_system, recorded_draws,
+                                          replayed_draws, state_disagreements, track_mono)
+
+    seq = mono_sequence(hw=(240, 320), n_points=350)
+    with record_pose_calls() as calls, recorded_draws() as draws:
+        card = track_mono(new_system(seq, cuda, 400, 4), seq, 12)
+    with replayed_draws(list(draws)):
+        cpu = track_mono(new_system(seq, "cpu", 400, 4), seq, 12)
+    assert state_disagreements(card, cpu) == []
+    assert card[-1].n_kf >= 3 and card[-1].state == "OK"
+    rows = against_plain(calls)
+    assert rows and max(r["err"] for r in rows) < 1e-3
+
+
+def test_dense_ba_on_gpu_matches_cpu(cuda):
+    """One local-BA-sized problem on the card and on the CPU: |dTcw| <
+    1e-3, points within 1e-3 relative; two card runs give the same bits."""
+    from swarmmap_tpu_torch.ops import ba, lie
+
+    rng = np.random.RandomState(0)
+    n_cams, n_pts = 8, 300
+    K = np.array([[450.0, 0, 320], [0, 450.0, 240], [0, 0, 1]])
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(5, 9, n_pts)], 1)
+    Tcw = np.tile(np.eye(4), (n_cams, 1, 1))
+    Tcw[:, 0, 3] = -0.4 * np.arange(n_cams)
+    obs = [(c, j) for c in range(n_cams) for j in range(n_pts) if rng.rand() > 0.3]
+    cam, pt = np.array(obs).T
+    pc = pts[pt] + Tcw[cam, :3, 3]
+    uv = pc[:, :2] / pc[:, 2:] * 450.0 + K[:2, 2] + rng.normal(0, 0.5, (len(obs), 2))
+    jitter = lie.se3_exp(torch.tensor(rng.randn(n_cams, 6) * 0.01, dtype=torch.float32)).numpy()
+    args = (jitter @ Tcw, np.tile(K, (n_cams, 1, 1)), np.arange(n_cams) < 2,
+            pts + rng.normal(0, 0.05, pts.shape), cam, pt, uv, np.ones(len(obs)))
+    prob = ba.build_padded_problem(*args, device=cuda)
+    rc, rc2 = ba.bundle_adjust(prob), ba.bundle_adjust(prob)
+    rp = ba.bundle_adjust(ba.build_padded_problem(*args, device="cpu"))
+    assert all(torch.equal(getattr(rc, f), getattr(rc2, f)) for f in ba.BAResult._fields)
+    assert float((rc.Tcw.cpu() - rp.Tcw).abs().max()) < 1e-3
+    rel = (rc.pts.cpu() - rp.pts).abs().amax(1) / rp.pts.abs().amax(1).clamp(min=1e-6)
+    assert float(rel.max()) < 1e-3

@@ -18,6 +18,7 @@ from swarmmap_tpu_torch import native
 from swarmmap_tpu_torch.core import keyframe_db, map_store
 from swarmmap_tpu_torch.ops import matching, vocab
 from swarmmap_tpu_torch.utils import padding
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # written from the process clock (global_clock), so they differ between any
 # two runs; every other attribute must be equal

@@ -10,6 +10,7 @@ from swarmmap_tpu.ops import hamming as jham
 from swarmmap_tpu.ops import matching as jmatch
 from swarmmap_tpu_torch import convert
 from swarmmap_tpu_torch.ops import hamming, matching
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

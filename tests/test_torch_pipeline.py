@@ -24,6 +24,7 @@ from swarmmap_tpu_torch import convert, pipeline
 from swarmmap_tpu_torch.core import frame, keyframe_db, map_store, tracking
 from swarmmap_tpu_torch.ops import vocab
 from swarmmap_tpu_torch.utils import config, datasets, device
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 HW = (240, 320)

@@ -15,6 +15,7 @@ import torch
 
 from swarmmap_tpu.ops import pnp as jpnp
 from swarmmap_tpu_torch.ops import pnp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _pnp_problem(dtype, seed=0):

@@ -17,6 +17,7 @@ from swarmmap_tpu.ops import lie as jlie
 from swarmmap_tpu.ops import pallas_pose
 from swarmmap_tpu.ops import pose_opt as jpose
 from swarmmap_tpu_torch.ops import lie, pose_kernel, pose_opt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEDULES = [(2, 8), (4, 10)]
 

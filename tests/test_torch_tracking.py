@@ -24,6 +24,7 @@ from swarmmap_tpu_torch.ops import vocab
 from swarmmap_tpu_torch.utils import config
 from swarmmap_tpu_torch.utils.stats import STATS
 from test_torch_mapstore import CLOCK_FIELDS, _assert_same
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HW = (240, 320)
 TCW_TOL = 1e-3
@@ -193,9 +194,13 @@ def test_relocalisation_failure_resets_like_jax(world):
     assert trackers[1].store.n_kf == 1 and trackers[1].state.name == "OK"
 
 
-def test_unported_paths_raise(world):
-    """Two-view initialisation and dynamic filtering wait for later slices
-    and say so; nothing falls back."""
+def test_unported_paths_raise(world, tmp_path):
+    """Dynamic filtering, stereo, the map checkpoints and the
+    conjugate-gradient BA wait for later slices and say so; nothing falls
+    back."""
+    from swarmmap_tpu_torch.core.system import System
+    from swarmmap_tpu_torch.ops import ba
+
     vb = vocab.default_vocabulary()
 
     def make(**params):
@@ -203,13 +208,25 @@ def test_unported_paths_raise(world):
                                  keyframe_db.KeyFrameDatabase(vb), vb, device="cpu",
                                  params=tracking.TrackingParams(**params))
 
-    img = jdata.render_frame(world, 0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make().grab(img, 0.0)
     for params in (dict(dynamic_filter=True), dict(dynamic_segment="conv")):
         with pytest.raises(NotImplementedError, match="item 19"):
             make(**params)
-
+    img = jdata.render_frame(world, 0)
+    s = System(_settings(config, world), vocab=vb, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        s.track_stereo(img, img, 0.0)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        s.save_map(tmp_path / "map.bin")
+    with pytest.raises(NotImplementedError, match="item 20"):
+        s.load_map(tmp_path / "map.bin")
+    prob = ba.build_padded_problem(np.eye(4)[None], np.eye(3)[None], [True], np.ones((1, 3)),
+                                   [0], [0], [[0.0, 0.0]], [1.0], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ba.bundle_adjust(prob, mode="cg")
+    # monocular initialisation is ported: a first monocular frame waits for
+    # a second one
+    assert s.track_monocular(img, 0.0) is None
+    assert s.state.name == "NOT_INITIALIZED" and s.tracking.init_frame is not None
 
 
 @pytest.mark.parametrize("frames,expect", [
