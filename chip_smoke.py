@@ -31,7 +31,21 @@ one it exits non-zero before doing anything.  The paths:
   JAX package's rate at this size; with per-frame, per-mapping-stage,
   per-BA and two-view times.  With --out DIR, the 48 runs' two-view draws
   go to DIR/mono_draws.npz (`tests/ate_spread_mono.py port --draws` replays
-  them on the CPU).
+  them on the CPU);
+- the agent's side of the swarm (`swarm.SwarmAgent`, the `sync/` layer,
+  `System.save_map` / `load_map`) on the same sequence: a state report and
+  a push every 10 frames, each push decoded and applied to a replica store
+  that must end equal to the agent's map bit for bit, the replica's pull
+  distributed back after frame 29 with the agent tracking on as the
+  uninterrupted run did, and the map saved in both formats, loaded into a
+  fresh client and relocalised against (2 of frames 10, 20, 30); wire
+  bytes and encode / decode / apply / save / load times;
+- `python -m swarmmap_tpu_torch.bench` (bench.py's tracking metrics), its
+  distorted inliers held to the CPU step's.
+
+The pose kernel is held to the plain version on synthetic problems at
+N = 1024 and 2048 (its register builds) and 2049 and 4096 (its streaming
+build), at 2x8 and 4x10.
 
 Kernel times are CUDA events around 50 back-to-back launches divided by
 the count, with the stream held by a sleep kernel while the host enqueues
@@ -154,6 +168,45 @@ def phase_pose_kernel(dev: torch.device) -> tuple[float, dict]:
     return worst, times
 
 
+def phase_pose_large(dev: torch.device) -> tuple[float, dict]:
+    """The streaming build (N > 2048) against plain pose_optimize(step_tol=0)
+    on the card at A=3, N = 2049 and 4096, for both schedules, with the
+    bars of phase_pose_kernel; returns the largest |dTcw| and the kernel's
+    ms, the plain version's and the bound per schedule and N."""
+    from swarmmap_tpu_torch.bench_pose import N_AGENTS, bound, per_launch_ms, pose_problems
+    from swarmmap_tpu_torch.ops import pose_kernel, pose_opt
+
+    worst, times = 0.0, {}
+    for n in (2049, 4096):
+        if pose_kernel.launch_config(n).ppt != pose_kernel.STREAMING:
+            fail(f"launch_config({n}) does not pick the streaming build")
+        for rounds, iters in ((2, 8), (4, 10)):
+            rng = np.random.RandomState(11 + rounds + n)
+            args = [x.to(dev) for x in pose_problems(rng, N_AGENTS, n, cold=(rounds == 4))]
+
+            def kernel():
+                return pose_opt.pose_optimize_auto(*args, rounds=rounds, iters=iters)
+
+            def plain():
+                return pose_opt.pose_optimize(*args, rounds=rounds, iters=iters, step_tol=0.0)
+
+            rk, rp = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((rk.Tcw - rp.Tcw).abs().max())
+            agree = float((rk.inliers == rp.inliers).float().mean())
+            ms_k, ms_p = per_launch_ms(kernel), cuda_ms(plain, n=5)
+            b_ms, b_by = bound(args, rounds, iters)
+            log(f"pose streaming {rounds}x{iters} A={N_AGENTS} N={n}: max|dTcw| {err:.3g}, "
+                f"inlier agreement {agree:.4f}, kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+                f"bound {b_ms * 1e3:.3f} us ({b_by})")
+            if not err < TCW_TOL or not agree > AGREE_MIN[(rounds, iters)]:
+                fail(f"pose streaming build disagrees with plain at {rounds}x{iters}, N={n}")
+            worst = max(worst, err)
+            times[f"{rounds}x{iters}_n{n}"] = {"ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+                                               "bound_by": b_by}
+    return worst, times
+
+
 def build_inputs(dev: torch.device):
     """Per-cell [A, ...] inputs: pinhole and EuRoC-distorted, agents 0..2."""
     from swarmmap_tpu_torch import cells as c
@@ -195,7 +248,12 @@ def phase_main_path(cells: dict) -> dict:
     return {"launches": launches, "steps": n_steps, "outs": outs}
 
 
-def phase_reference(cells: dict, outs: dict) -> float:
+def inliers_disagree(card: list[int], cpu: list[int]) -> bool:
+    """Whether per-agent inliers differ by more than max(3, 5%) of the CPU's."""
+    return any(abs(a - b) > max(3, math.ceil(0.05 * b)) for a, b in zip(card, cpu))
+
+
+def phase_reference(cells: dict, outs: dict) -> tuple[float, dict]:
     """The card's step against references: (a) the pose stage of the same
     step through the plain pose_optimize(step_tol=0) on the card, (b) the
     whole step on the CPU, where every stage runs its plain version.
@@ -207,7 +265,7 @@ def phase_reference(cells: dict, outs: dict) -> float:
     from swarmmap_tpu_torch.cells import STEP_KW
     from swarmmap_tpu_torch.ops import pose_opt
 
-    worst = 0.0
+    worst, cpu_inliers = 0.0, {}
     for name, inp in cells.items():
         out = outs[name]
         prob = pipeline.match_frame(inp, **STEP_KW)[3]
@@ -225,14 +283,14 @@ def phase_reference(cells: dict, outs: dict) -> float:
             pipeline.TrackInputs(*(x.cpu() for x in inp)), **STEP_KW)
         d_cpu = float((out.Tcw.cpu() - cpu.Tcw).abs().max())
         n_gpu, n_cpu = out.n_inliers.cpu(), cpu.n_inliers
+        cpu_inliers[name] = n_cpu.tolist()
         log(f"  {name}: card vs CPU step: max|dTcw| {d_cpu:.3g}, "
             f"n_inliers {n_gpu.tolist()} vs {n_cpu.tolist()}")
-        tol = torch.clamp(torch.ceil(0.05 * n_cpu.float()), min=3)
-        if not d_cpu < 5e-3 or bool(((n_gpu - n_cpu).abs() > tol).any()):
+        if not d_cpu < 5e-3 or inliers_disagree(n_gpu.tolist(), cpu_inliers[name]):
             fail(f"{name}: the card's step disagrees with the CPU step")
         overlap, total = pipeline.make_multi_agent_step(**STEP_KW)(inp)[1:]
         log(f"  {name}: overlap matrix {overlap.tolist()}, total inliers {int(total)}")
-    return worst
+    return worst, cpu_inliers
 
 
 def _pct(xs, q: float) -> float:
@@ -604,7 +662,7 @@ def phase_mono(dev: torch.device, out_dir: str | None = None) -> dict:
            "launches": launches, "fused_steps": counts.get("fused_step", 0),
            "pose_opt_frame": counts.get("pose_opt_frame", 0),
            "merged_fuse_fallback": counts.get("lm_merged_fuse_fallback", 0),
-           "twoview_calls": len(draws)}
+           "twoview_calls": len(draws), "states": [r.state for r in recs]}
     log("mono: " + json.dumps(res))
     frames = _mono_frames(recs, min(init, len(recs) - 1))
     log("mono ms per frame (host clock around track_monocular, ends in a fetch): "
@@ -699,6 +757,167 @@ def phase_mono(dev: torch.device, out_dir: str | None = None) -> dict:
     return res
 
 
+SYNC_EVERY = 10                 # frames between state reports and between pushes
+SYNC_DISTRIBUTE_AFTER = 29      # the replica's pull goes back to the agent after this frame
+SYNC_RELOC_FRAMES = (10, 20, 30)
+
+
+def _ms(fn):
+    """(fn's result, host ms to its end); fn does not leave work on the card."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _replica_disagreements(agent_store, replica) -> list[str]:
+    """Where a replica differs from the agent's map: the alive keyframes and
+    map points by gid, each keyframe's pose and point's position bit for
+    bit."""
+    out = []
+    for kind, alive, by_gid, gid, vals in (
+            ("keyframe", "kf_alive", "kf_by_gid", "kf_gid", "kf_pose_cw"),
+            ("map point", "mp_alive", "mp_by_gid", "mp_gid", "mp_pos")):
+        a_slots = np.flatnonzero(getattr(agent_store, alive))
+        r_slots = np.flatnonzero(getattr(replica, alive))
+        a_gids = set(getattr(agent_store, gid)[a_slots].tolist())
+        r_gids = set(getattr(replica, gid)[r_slots].tolist())
+        if a_gids != r_gids:
+            out.append(f"alive {kind}s: {len(a_gids)} on the agent, {len(r_gids)} on the "
+                       f"replica, {len(a_gids ^ r_gids)} not on both")
+            continue
+        rmap = getattr(replica, by_gid)
+        differ = [g for g, k in zip(getattr(agent_store, gid)[a_slots].tolist(), a_slots)
+                  if not np.array_equal(getattr(agent_store, vals)[k],
+                                        getattr(replica, vals)[rmap[g]])]
+        if differ:
+            out.append(f"{len(differ)} of {len(a_gids)} {kind}s differ, gids {differ[:5]}")
+    return out
+
+
+def phase_sync(dev: torch.device, mono_states: list[str]) -> dict:
+    """The agent's side of the swarm on the `mono` cell, on the card: a
+    SwarmAgent tracks cells.mono_sequence() with a state report and a push
+    every SYNC_EVERY frames; a replica store decodes and applies every push
+    and must end equal to the agent's map bit for bit; after frame
+    SYNC_DISTRIBUTE_AFTER the replica's pull is distributed back and the
+    agent must go on tracking without relocalising, as many of the
+    remaining frames as the uninterrupted run (`phase_mono`) within 1; the
+    map is saved in both formats and each loads into a fresh client with
+    the same counts, which relocalises at least 2 of SYNC_RELOC_FRAMES.
+    The counts are set to 0 just before and read just after; every pose_lm
+    launch is held to the plain version."""
+    import tempfile
+    from pathlib import Path
+
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.cells import (mono_sequence, new_system, relocalised, settings_for,
+                                          timed_record)
+    from swarmmap_tpu_torch.core.map_store import MapStore
+    from swarmmap_tpu_torch.ops.vocab import default_vocabulary
+    from swarmmap_tpu_torch.swarm import SwarmAgent
+    from swarmmap_tpu_torch.sync import codec
+    from swarmmap_tpu_torch.sync.oplog import Mapit
+
+    seq = mono_sequence()
+    vocab = default_vocabulary()
+    _reset_counts()
+    failed, pushes, states, saves = [], [], [], {}
+    with record_pose_calls() as calls, tempfile.TemporaryDirectory() as tmp:
+        agent = SwarmAgent(0, settings_for(seq.world), vocab, device=dev)
+        replica = MapStore(map_id=0, n_kp=agent.system.store.n_kp)
+        replica_mapit = Mapit(replica)
+        recs = []
+        for i in range(len(seq)):
+            recs.append(timed_record(lambda i=i: agent.track(seq.read(i), seq.timestamps[i]),
+                                     agent.system.tracking))
+            if (i + 1) % SYNC_EVERY:
+                continue
+            states.append(len(agent.state_payload()))
+            data, push_ms = _ms(agent.push_payload)
+            if data is None:
+                failed.append(f"frame {i}: nothing to push")
+                continue
+            sl, dec_ms = _ms(lambda: codec.decode_slice(data))
+            _, app_ms = _ms(lambda: replica_mapit.apply_slice(sl, vocab=vocab))
+            pushes.append({"frame": i, "bytes": len(data), "kfs": len(sl.kfs), "mps": len(sl.mps),
+                           "updates": len(sl.updates), "archive_encode_ms": push_ms,
+                           "decode_ms": dec_ms, "apply_ms": app_ms})
+            log("sync push: " + json.dumps(pushes[-1]))
+            if i == SYNC_DISTRIBUTE_AFTER:
+                pull, enc_ms = _ms(lambda: codec.encode_slice(replica_mapit.reply_pull()))
+                _, recv_ms = _ms(lambda: agent.receive_distribute(pull))
+                log(f"sync distribute after frame {i}: {len(pull)} bytes, pull + encode "
+                    f"{enc_ms:.2f} ms, receive_distribute {recv_ms:.2f} ms")
+        st = agent.system.store
+        diffs = _replica_disagreements(st, replica)
+        counts = (agent.system.n_keyframes(), agent.system.n_map_points())
+        log(f"sync replica after {len(pushes)} pushes: agent {counts[0]} keyframes / {counts[1]} "
+            f"points, replica {int(replica.kf_alive.sum())} / {int(replica.mp_alive.sum())}; "
+            f"disagreements {diffs}")
+        failed += [f"replica: {d}" for d in diffs]
+        after = recs[SYNC_DISTRIBUTE_AFTER + 1:]
+        tracked = sum(r.state == "OK" for r in after)
+        ref = sum(x == "OK" for x in mono_states[SYNC_DISTRIBUTE_AFTER + 1:])
+        relocs = sum(r.state == "LOST" or "ransac_pnp" in r.counts or "relocalized" in r.counts
+                     for r in after)
+        log(f"sync frames {SYNC_DISTRIBUTE_AFTER + 1}-{len(seq) - 1} after the distribute: "
+            f"{tracked} tracked (uninterrupted run: {ref}), frames lost or relocalising {relocs}, "
+            f"states {[r.state for r in after]}")
+        if abs(tracked - ref) > 1 or relocs:
+            failed.append(f"after the distribute {tracked} frames tracked (uninterrupted {ref}), "
+                          f"{relocs} frames lost or relocalising")
+
+        for fmt in ("msgpack", "boost-bin"):
+            path = Path(tmp) / f"map-client-0.{fmt}"
+            _, save_ms = _ms(lambda: agent.system.save_map(path, fmt=fmt))
+            fresh = new_system(seq, dev)
+            ok, load_ms = _ms(lambda: fresh.load_map(path))
+            loaded = (fresh.n_keyframes(), fresh.n_map_points())
+            reloc = relocalised(fresh, seq, SYNC_RELOC_FRAMES)
+            torch.cuda.synchronize()
+            saves[fmt] = {"bytes": path.stat().st_size, "save_ms": save_ms, "load_ms": load_ms,
+                          "keyframes": loaded[0], "map_points": loaded[1], "relocalised": reloc}
+            log(f"sync {fmt} checkpoint: " + json.dumps(saves[fmt]))
+            if not ok or loaded != counts:
+                failed.append(f"{fmt}: loaded {loaded}, saved {counts}")
+            if sum(reloc) < 2:
+                failed.append(f"{fmt}: relocalised {reloc} of frames {SYNC_RELOC_FRAMES}")
+    launches, stats = _read_counts()
+    calls_made = stats.get("fused_step", 0) + stats.get("pose_opt_frame", 0) + stats.get(
+        "ransac_pnp", 0)
+    log(f"sync pose_lm launches {launches} (fused steps {stats.get('fused_step', 0)}, "
+        f"_pose_opt_frame {stats.get('pose_opt_frame', 0)}, ransac_pnp "
+        f"{stats.get('ransac_pnp', 0)}); state reports {states} bytes")
+    if launches != calls_made or launches == 0:
+        failed.append(f"{launches} pose_lm launches for {calls_made} pose calls")
+    if len(pushes) != len(seq) // SYNC_EVERY:
+        failed.append(f"{len(pushes)} pushes in {len(seq)} frames")
+    if failed:
+        fail("sync: " + "; ".join(failed))
+    return {"frames": len(seq), "launches": launches, "launches_per_frame": launches / len(seq),
+            "pushes": pushes, "state_bytes": states, "checkpoints": saves,
+            "max_abs_err": _hold_to_plain("sync", calls)}
+
+
+def phase_bench(cpu_inliers: dict) -> dict:
+    """`python -m swarmmap_tpu_torch.bench` in this process, with the counts
+    set to 0 just before and read just after: its JSON line, and its
+    distorted inliers held to the CPU step's within max(3, 5%)."""
+    from swarmmap_tpu_torch import bench
+
+    _reset_counts()
+    rec = bench.run()
+    launches, _ = _read_counts()
+    log("bench: " + json.dumps(rec))
+    steps = 1 + 3 * bench.N_ITER + 1 + 2 * bench.N_ITER
+    if launches != steps:
+        fail(f"bench: {launches} pose_lm launches in {steps} steps")
+    if inliers_disagree(rec["distorted_inliers"], cpu_inliers["distorted"]):
+        fail(f"bench: distorted inliers {rec['distorted_inliers']} vs the CPU's "
+             f"{cpu_inliers['distorted']}")
+    return {"steps": steps, "launches": launches, "record": rec}
+
+
 def phase_times(cells: dict) -> dict:
     """Median CUDA-event times (ms) of the batched step per cell, of the
     pinhole step with its pose stage on the plain version, and of the plain
@@ -742,17 +961,25 @@ def main() -> None:
     kind = phase_device()
     phase_build()
     worst, synthetic_ms = phase_pose_kernel(dev)
+    worst_large, streaming = phase_pose_large(dev)
+    worst = max(worst, worst_large)
     cells = build_inputs(dev)
     main_path = phase_main_path(cells)
-    worst = max(worst, phase_reference(cells, main_path["outs"]))
+    worst_ref, cpu_inliers = phase_reference(cells, main_path["outs"])
+    worst = max(worst, worst_ref)
     tracker_paths = phase_tracker(dev)
     mono = phase_mono(dev, sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv else None)
     tracker_paths["mono"] = {k: mono[k] for k in (
         "frames", "launches", "launches_per_frame", "max_abs_err")}
+    sync = phase_sync(dev, mono["states"])
+    tracker_paths["sync"] = {k: sync[k] for k in (
+        "frames", "launches", "launches_per_frame", "max_abs_err")}
     worst = max(worst, *(p["max_abs_err"] for p in tracker_paths.values()))
+    bench_run = phase_bench(cpu_inliers)
     times = phase_times(cells)
     per_path = {"batched_step": {"steps": main_path["steps"],
-                                 "launches": main_path["launches"]}, **tracker_paths}
+                                 "launches": main_path["launches"]}, **tracker_paths,
+                "bench": {k: bench_run[k] for k in ("steps", "launches")}}
     kernels = [{
         "name": "pose_lm", "route": "cuda",
         "source": "swarmmap_tpu_torch/csrc/pose_lm.cu",
@@ -773,6 +1000,7 @@ def main() -> None:
         # no single PyTorch call computes an LM pose optimisation
         "library_ms": None,
         "synthetic_ms": synthetic_ms,
+        "streaming_build": streaming,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,13 @@ Layer map (ported so far):
             PnP, two-view initialisation, triangulation, dense bundle
             adjustment; the BoW vocabulary
   pipeline  the fused per-frame tracking step, batched over agents
+  sync/     the change log with push / pull (oplog.py), the msgpack wire
+            and map files (codec.py over msgpack_wire.py), the reference's
+            boost text wire and binary map files
+  swarm     SwarmAgent: one client with its change log and sync endpoints
+  bench     bench.py's tracking metrics for the port on the card
   native    host C++ (csrc/*.cc, g++ + ctypes): quadtree keypoint budgets,
-            covisibility, keyframe redundancy
+            covisibility, keyframe redundancy, op-log compaction
   convert   numpy <-> tensor conversion of the JAX package's records
   utils/    config, logging, padding, stats, transfers, the synthetic world
 """

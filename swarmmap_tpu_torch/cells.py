@@ -120,6 +120,19 @@ def ate_share(poses: dict, world) -> tuple[float, float]:
     return ate_rmse(est, gt), float(np.linalg.norm(gt.max(0) - gt.min(0)))
 
 
+def relocalised(system, seq, frames=(10, 20, 30)) -> list[bool]:
+    """For each index of `seq` in `frames`, whether a fresh frame of it,
+    built on the system's device, relocalises against the system's map
+    (`Tracking._relocalize`: BoW candidates, RANSAC PnP, pose refinement):
+    the map-reuse check of tests/test_slam_e2e.py."""
+    from .core.frame import build_frame
+
+    s, tr = system.settings, system.tracking
+    return [bool(tr._relocalize(build_frame(seq.read(i), float(seq.timestamps[i]), s.camera,
+                                            s.orb, device=tr.device)))
+            for i in frames]
+
+
 class FrameRecord(NamedTuple):
     state: str
     pose_cw: np.ndarray | None

@@ -7,8 +7,7 @@ NOT run here — it lives server-side in the mediator (System.cc:96-97); the
 AddLoopClosing map events flow to it through the sync layer.
 
 Not ported yet, and raising NotImplementedError: `track_stereo` (ROADMAP
-queue 1, item 16) and the map checkpoints `save_map` / `load_map`, which
-need the sync layer (item 20).
+queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -20,11 +19,14 @@ import torch
 from ..ops.vocab import Vocabulary, default_vocabulary
 from ..utils.config import Settings
 from ..utils.device import default_device
+from ..utils.logging import get_logger
 from ..utils.trajectory import save_tum
 from .keyframe_db import KeyFrameDatabase
 from .local_mapping import LocalMapping
 from .map_store import MapStore
 from .tracking import SystemState, Tracking, TrackingParams, TrackingState
+
+_log = get_logger("system")
 
 
 def _round_up(x: int, m: int = 128) -> int:
@@ -117,13 +119,56 @@ class System:
 
     # -- client-side map checkpoints (reference: System.cc:349,370) -----------
     def save_map(self, path: str | Path, fmt: str = "msgpack"):
-        """reference: System::SaveMap"""
-        raise NotImplementedError(
-            "map checkpoints need the sync layer (sync/), which is not ported yet "
-            "(ROADMAP queue 1, item 20)")
+        """Write the client map checkpoint — the reference's
+        `map-client-<id>.bin` (System::SaveMap, System.cc:349 — the whole
+        map + the keyframe database's inverted file).  fmt="boost-bin"
+        exports the reference's binary-archive layout so its tooling can
+        read maps built here; the default is the compact msgpack slice
+        (decode auto-sniffs both).  The same bytes as the JAX package's
+        save of the same map."""
+        from ..sync import codec
+        from ..sync.oplog import full_archive
+
+        with self.store.lock:
+            arc = full_archive(self.store)
+            if fmt == "boost-bin":
+                from ..sync import boost_bin
+
+                inv = self.kfdb.inverted  # word id -> kf slots
+                n_words = max(inv.keys(), default=-1) + 1
+                inverted = [
+                    sorted(int(self.store.kf_gid[k]) for k in inv.get(w, ())
+                           if self.store.kf_alive[k])
+                    for w in range(n_words)
+                ]
+                data = boost_bin.encode_map_bin(arc.kfs, arc.mps,
+                                                inverted_file=inverted)
+            else:
+                data = codec.encode_slice(arc)
+        Path(path).write_bytes(data)
+        _log.info("map saved to %s (%d KFs, %d MPs)", path,
+                  len(arc.kfs), len(arc.mps))
 
     def load_map(self, path: str | Path) -> bool:
-        """reference: System::LoadMap"""
-        raise NotImplementedError(
-            "map checkpoints need the sync layer (sync/), which is not ported yet "
-            "(ROADMAP queue 1, item 20)")
+        """Load a saved map checkpoint into this client (reference:
+        System::LoadMap, System.cc:370 — deserialize, then rebuild the
+        keyframe database via ComputeBoW).  Returns False when the file
+        does not exist (the reference starts a fresh map then)."""
+        path = Path(path)
+        if not path.exists():
+            _log.warning("cannot open map file %s — starting fresh", path)
+            return False
+        from ..sync import codec
+        from ..sync.oplog import Mapit
+
+        sl = codec.decode_slice(path.read_bytes())
+        with self.store.lock:
+            prev_log = self.store.log_fn
+            Mapit(self.store).apply_slice(sl, vocab=self.vocab)
+            self.store.log_fn = prev_log
+            # reference: for kf in GetAllKeyFrames(): kf->ComputeBoW()
+            for k in self.store.alive_kf_slots():
+                self.kfdb.add(self.store, int(k))
+        _log.info("map loaded from %s: %d keyframes, %d points", path,
+                  self.n_keyframes(), self.n_map_points())
+        return True

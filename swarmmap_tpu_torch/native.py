@@ -1,10 +1,10 @@
 """Host C++ of the port (g++ + ctypes): exact quadtree keypoint budgets,
-covisibility and keyframe redundancy counts.
+covisibility, keyframe redundancy counts and the op-log compaction mask.
 
-Port of the parts of swarmmap_tpu/native/__init__.py that the tracker and
-the map store use.  The sources are copies (`csrc/octree.cc`,
-`csrc/mapops.cc`), built at first use by `_build.load_host`.  There is no
-Python fallback: a failed build raises.  (The JAX package's fallback for
+Port of the parts of swarmmap_tpu/native/__init__.py that the tracker,
+the map store and the change log (sync/oplog.py) use.  The sources are
+copies (`csrc/octree.cc`, `csrc/mapops.cc`), built at first use by
+`_build.load_host`.  There is no Python fallback: a failed build raises.  (The JAX package's fallback for
 `distribute_octree` is a global top-k, another keypoint policy.)
 """
 from __future__ import annotations
@@ -41,6 +41,11 @@ def get_lib() -> ctypes.CDLL:
     lib.redundancy_counts.argtypes = [
         i32p, i32p, ctypes.c_int, ctypes.c_int, u8p,
         i32p, ctypes.c_int, i32p, i32p,
+    ]
+    lib.aggregate_oplog.restype = ctypes.c_int
+    lib.aggregate_oplog.argtypes = [
+        i32p, i32p, np.ctypeslib.ndpointer(np.int64, flags="C"), ctypes.c_int,
+        u8p, u8p, u8p,
     ]
     return lib
 
@@ -88,3 +93,20 @@ def redundancy(kf_mp: np.ndarray, kf_oct: np.ndarray, kf_alive: np.ndarray,
         cands, len(cands), total, red,
     )
     return total, red
+
+
+def aggregate_keep(kind: np.ndarray, func: np.ndarray, target: np.ndarray,
+                   last_writer: np.ndarray, is_badflag: np.ndarray) -> np.ndarray:
+    """Op-log compaction keep-mask (reference: Mapit::Aggregate).
+
+    kind/func are small int ids; last_writer/is_badflag are per-func-id
+    flag tables. Returns a bool keep mask; for last-writer funcs the
+    LAST record survives."""
+    kind = np.ascontiguousarray(kind, np.int32)
+    func = np.ascontiguousarray(func, np.int32)
+    target = np.ascontiguousarray(target, np.int64)
+    lw = np.ascontiguousarray(last_writer, np.uint8)
+    bf = np.ascontiguousarray(is_badflag, np.uint8)
+    keep = np.zeros(len(kind), np.uint8)
+    get_lib().aggregate_oplog(kind, func, target, len(kind), lw, bf, keep)
+    return keep.astype(bool)

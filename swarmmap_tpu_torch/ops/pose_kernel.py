@@ -22,23 +22,25 @@ pose_lm_launches = 0
 _P = ctypes.c_void_p
 
 THREADS = 256        # threads per CTA; one CTA per agent
-PPT_BUILDS = (4, 8)  # the kernel's points-per-thread instantiations
-MAX_POINTS = PPT_BUILDS[-1] * THREADS
+PPT_BUILDS = (4, 8)  # the register builds' points per thread
+STREAMING = 0        # LaunchConfig.ppt of the streaming build
 
 
 class LaunchConfig(NamedTuple):
-    ppt: int      # points each thread holds in registers
+    ppt: int      # points each thread holds in registers; STREAMING: none
     threads: int  # threads per CTA
 
 
 def launch_config(n: int) -> LaunchConfig:
-    """The instantiation of pose_lm_kernel that takes N points per agent
-    (the same choice as pose_lm_launch in csrc/pose_lm.cu): 4 points per
-    thread up to N = 1024, 8 up to N = 2048.  Raises ValueError above."""
+    """The build of the kernel that takes N points per agent (the same
+    choice as pose_lm_launch in csrc/pose_lm.cu): pose_lm_kernel with 4
+    points per thread in registers up to N = 1024 and 8 up to N = 2048,
+    pose_lm_stream_kernel (points read from global memory on each pass)
+    above."""
     for ppt in PPT_BUILDS:
         if n <= ppt * THREADS:
             return LaunchConfig(ppt, THREADS)
-    raise ValueError(f"pose_lm_kernel takes at most {MAX_POINTS} points per agent, got {n}")
+    return LaunchConfig(STREAMING, THREADS)
 
 
 def bind(lib: ctypes.CDLL):
@@ -82,8 +84,8 @@ def pose_optimize_cuda(
     """A agents' LM pose optimisations in one kernel launch.
 
     Tcw0 [A,4,4], K [A,3,3], pts_w [A,N,3], uv [A,N,2], inv_sigma2 [A,N]
-    fp32 and valid [A,N] bool, all contiguous on one CUDA device, with
-    N <= MAX_POINTS (`launch_config`).  Returns Tcw [A,4,4], inliers [A,N]
+    fp32 and valid [A,N] bool, all contiguous on one CUDA device, any N
+    (`launch_config` names the build).  Returns Tcw [A,4,4], inliers [A,N]
     bool, chi2 [A,N].  Launches on the current stream and does not
     synchronise."""
     global pose_lm_launches
@@ -98,7 +100,6 @@ def pose_optimize_cuda(
         _check(name, t, shape, dt, dev)
     if rounds < 0 or iters < 0:
         raise ValueError("rounds and iters must be >= 0")
-    launch_config(N)
     launch = _launch_fn()
     Tout = torch.empty((A, 4, 4), dtype=f32, device=dev)
     inl = torch.empty((A, N), dtype=torch.bool, device=dev)

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA device: the hand-written LM pose
-kernel (csrc/pose_lm.cu) against its plain PyTorch version, the batched
-tracking step and the per-agent tracker on the card against the same on
-the CPU, and RANSAC PnP with its refinement through the kernel.
+kernel (csrc/pose_lm.cu, its register and streaming builds) against its
+plain PyTorch version, the batched tracking step and the per-agent tracker
+on the card against the same on the CPU, RANSAC PnP with its refinement
+through the kernel, and a map saved, loaded and relocalised against.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -64,12 +65,23 @@ def test_pose_kernel_edge_schedules(cuda, rounds, iters):
     torch.testing.assert_close(k.chi2, p.chi2, rtol=1e-2, atol=1e-2)
 
 
-def test_pose_kernel_refuses_more_points_than_its_builds(cuda):
-    args = [x.to(cuda) for x in pose_problems(np.random.RandomState(2), 1, 2049, False)]
+@pytest.mark.parametrize("n", [2049, 4096])
+@pytest.mark.parametrize("rounds,iters,min_agree", [(0, 8, 0.99), (2, 8, 0.99), (4, 10, 0.98)])
+def test_pose_kernel_streaming_build_matches_plain(cuda, rounds, iters, min_agree, n):
+    """Above 2048 points the streaming build (points read from global
+    memory on each pass), at 3 agents, within the register builds' bars."""
+    args = [x.to(cuda) for x in pose_problems(np.random.RandomState(2 + n), 3, n, rounds == 4)]
     before = pose_kernel.pose_lm_launches
-    with pytest.raises(ValueError, match="at most 2048"):
-        pose_kernel.pose_optimize_cuda(*args)
-    assert pose_kernel.pose_lm_launches == before
+    k = pose_opt.pose_optimize_auto(*args, rounds=rounds, iters=iters)
+    p = pose_opt.pose_optimize(*args, rounds=rounds, iters=iters, step_tol=0.0)
+    torch.cuda.synchronize()
+    assert pose_kernel.pose_lm_launches == before + 1
+    if rounds == 0:
+        assert torch.equal(k.Tcw, args[0])
+    assert float((k.Tcw - p.Tcw).abs().max()) < 1e-3
+    assert float((k.inliers == p.inliers).float().mean()) > min_agree
+    ok = k.inliers & p.inliers
+    torch.testing.assert_close(k.chi2[ok], p.chi2[ok], rtol=1e-2, atol=1e-2)
 
 
 def test_pose_kernel_refuses_bad_inputs(cuda):
@@ -251,3 +263,31 @@ def test_dense_ba_on_gpu_matches_cpu(cuda):
     assert float((rc.Tcw.cpu() - rp.Tcw).abs().max()) < 1e-3
     rel = (rc.pts.cpu() - rp.pts).abs().amax(1) / rp.pts.abs().amax(1).clamp(min=1e-6)
     assert float(rel.max()) < 1e-3
+
+
+def test_save_load_map_relocalises_on_gpu(cuda, tmp_path):
+    """tests/test_slam_e2e.py's map reuse on the card (240x320, 400
+    features, 4 levels, 40 frames): a saved map loads into a fresh client
+    with the same counts in both formats, and at least 2 of 3 mid-sequence
+    frames relocalise against it, every pose_lm launch within the plain
+    version's bars."""
+    from swarmmap_tpu_torch.cells import mono_sequence, new_system, relocalised
+
+    seq = mono_sequence(hw=(240, 320), n_points=350)
+    system = new_system(seq, cuda, 400, 4)
+    for i in range(len(seq)):
+        system.track_monocular(seq.read(i), seq.timestamps[i])
+    assert system.n_keyframes() >= 3
+    for fmt in ("msgpack", "boost-bin"):
+        path = tmp_path / f"map-{fmt}.bin"
+        system.save_map(path, fmt=fmt)
+        fresh = new_system(seq, cuda, 400, 4)
+        assert not fresh.load_map(tmp_path / "missing.bin")
+        assert fresh.load_map(path)
+        assert (fresh.n_keyframes(), fresh.n_map_points()) == (
+            system.n_keyframes(), system.n_map_points())
+        with record_pose_calls() as calls:
+            ok = relocalised(fresh, seq)
+        assert sum(ok) >= 2, ok
+        rows = against_plain(calls)
+        assert rows and all(r["err"] < 1e-3 and r["agree"] > 0.98 for r in rows), rows

@@ -174,18 +174,20 @@ def _env():
 
 
 def test_port_never_reaches_jax():
-    """Guard: with jax, jaxlib, the JAX package and PyYAML made
-    unimportable, the port imports, runs a small tracking step on its plain
-    path, and tracks three RGB-D frames with its tracker."""
+    """Guard: with jax, jaxlib, the JAX package, PyYAML and msgpack made
+    unimportable, the port imports (its sync layer, SwarmAgent and bench
+    too), runs a small tracking step on its plain path, tracks three RGB-D
+    frames with its tracker and round-trips its map through the codec."""
     code = (
         "import sys\n"
-        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml')\n"
+        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack')\n"
         "for m in [m for m in sys.modules if m.split('.')[0] in blocked]:\n"
         "    del sys.modules[m]\n"
         "for m in blocked:\n"
         "    sys.modules[m] = None\n"
         "import swarmmap_tpu_torch\n"
-        "from swarmmap_tpu_torch import convert, pipeline\n"
+        "from swarmmap_tpu_torch import bench, convert, pipeline, swarm\n"
+        "from swarmmap_tpu_torch.sync import boost_bin, boost_text, codec, msgpack_wire, oplog\n"
         "from swarmmap_tpu_torch.core import keyframe_db, map_store, tracking\n"
         "from swarmmap_tpu_torch.ops import vocab\n"
         "from swarmmap_tpu_torch.utils import config, datasets, device, stats\n"
@@ -206,6 +208,8 @@ def test_port_never_reaches_jax():
         "    img, d = datasets.render_frame(w, i, return_depth=True)\n"
         "    assert t.grab(img, i / 20.0, depth_image=d) is not None\n"
         "assert t.state.name == 'OK' and t.matches_inliers >= 100, t.matches_inliers\n"
+        "sl = codec.decode_slice(codec.encode_slice(oplog.full_archive(t.store)))\n"
+        "assert len(sl.kfs) == t.store.n_kf and len(sl.mps) == t.store.n_mp > 0\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in blocked"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -154,10 +154,12 @@ def test_launch_config_picks_the_instantiation(n, ppt):
     assert pose_kernel.launch_config(n) == pose_kernel.LaunchConfig(ppt=ppt, threads=256)
 
 
-def test_launch_config_refuses_more_than_2048_points():
-    assert pose_kernel.MAX_POINTS == 2048
-    with pytest.raises(ValueError, match="at most 2048"):
-        pose_kernel.launch_config(2049)
+@pytest.mark.parametrize("n", [2049, 4096, 100_000])
+def test_launch_config_streams_more_than_2048_points(n):
+    """Above the register builds' 2048 points the streaming build takes
+    any N (no upper limit)."""
+    assert pose_kernel.launch_config(n) == pose_kernel.LaunchConfig(
+        ppt=pose_kernel.STREAMING, threads=256)
 
 
 @pytest.mark.parametrize("rounds,iters", [(0, 8), (1, 1), (2, 8)])

@@ -195,9 +195,9 @@ def test_relocalisation_failure_resets_like_jax(world):
 
 
 def test_unported_paths_raise(world, tmp_path):
-    """Dynamic filtering, stereo, the map checkpoints and the
-    conjugate-gradient BA wait for later slices and say so; nothing falls
-    back."""
+    """Dynamic filtering, stereo and the conjugate-gradient BA wait for
+    later slices and say so; nothing falls back.  The map checkpoints,
+    ported, round-trip an empty map."""
     from swarmmap_tpu_torch.core.system import System
     from swarmmap_tpu_torch.ops import ba
 
@@ -215,10 +215,11 @@ def test_unported_paths_raise(world, tmp_path):
     s = System(_settings(config, world), vocab=vb, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         s.track_stereo(img, img, 0.0)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        s.save_map(tmp_path / "map.bin")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        s.load_map(tmp_path / "map.bin")
+    # map checkpoints are ported (item 20): an empty map saves and loads
+    s.save_map(tmp_path / "map.bin")
+    s2 = System(_settings(config, world), vocab=vb, device="cpu")
+    assert not s2.load_map(tmp_path / "missing.bin")
+    assert s2.load_map(tmp_path / "map.bin") and s2.n_keyframes() == s2.n_map_points() == 0
     prob = ba.build_padded_problem(np.eye(4)[None], np.eye(3)[None], [True], np.ones((1, 3)),
                                    [0], [0], [[0.0, 0.0]], [1.0], device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
