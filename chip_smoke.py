@@ -40,6 +40,19 @@ one it exits non-zero before doing anything.  The paths:
   uninterrupted run did, and the map saved in both formats, loaded into a
   fresh client and relocalised against (2 of frames 10, 20, 30); wire
   bytes and encode / decode / apply / save / load times;
+- the edge server (`server/`, the `MediatorScheduler` with its mediators,
+  loop closing, map merge and CG global BA) answering port SwarmAgents
+  (`cells.Server`): `server_swarm`, 3 agents on one landmark field (60
+  frames, 350 landmarks), and `server_loop`, one agent on a circuit (100
+  frames, 1500 landmarks), at the same geometry, a state report every 5
+  frames and a serve round every 10; held to the JAX tests' assertions
+  (replicas mirror the clients before the first merge, all maps in one
+  group with fused points, the loop closed with its scale and ATE within
+  the bars, 85% of frames tracked, no agent lost after a distribute), and
+  the whole server run again on the CPU on the card's push bytes and Sim3
+  draws: the same decisions request by request, replicas within
+  SERVER_TOL; with per-request stage, GBA, pose-graph, Sim3 and
+  distribute times, and one GBA call's kernel launches (torch.profiler);
 - `python -m swarmmap_tpu_torch.bench` (bench.py's tracking metrics), its
   distorted inliers held to the CPU step's.
 
@@ -899,6 +912,355 @@ def phase_sync(dev: torch.device, mono_states: list[str]) -> dict:
             "max_abs_err": _hold_to_plain("sync", calls)}
 
 
+SERVER_CELLS = ("server_swarm", "server_loop")
+# card vs CPU replica bars: poses and point positions relative to the
+# largest coordinate (the CPU parity tests' bars against JAX,
+# tests/test_torch_loop_closing.py), the same live keyframes, and at most
+# 2% of the live points live in one replica only (a fuse or cull match at
+# a window's edge flips with float32 differences in the GBA; the first
+# card run: 26 points of map 0)
+SERVER_TOL = {"pose": 2e-3, "pos": 1e-2, "mp_alive": 0.02}
+SERVER_LOOP_FUSED = 0.01      # card vs CPU: loop fusions within 1% (the first card run: 1266 vs 1265)
+SERVER_STAGES = ("srv_apply_slice", "srv_loop_detect", "srv_overlap", "srv_rank", "srv_vkf")
+SERVER_LIMIT_MS = 333.0       # 3 agents pushing once a second each (PERF.md section 2)
+SERVER_HOLD_EVERY = 4         # every 4th pose_lm launch of the agents against the plain version
+SERVER_TRACKED = 0.85         # tests/test_loop_closing.py::test_circuit_tracked
+
+
+@contextlib.contextmanager
+def _server_probes():
+    """Within the block, the server's device programs are timed from an
+    idle card to the end of their work: every CG bundle_adjust (with its
+    real and bucketed (C, P, O)), every optimize_pose_graph (nodes,
+    edges), every Sim3 RANSAC and optimize_sim3; and every distribute's
+    host ms.  Yields {name: [records]}."""
+    from swarmmap_tpu_torch.ops import ba, pose_graph, sim3, sim3_opt
+    from swarmmap_tpu_torch.server import scheduler, sim3_match
+
+    rec = {"gba": [], "pose_graph": [], "ransac_sim3": [], "optimize_sim3": [],
+           "sim3_attempt": [], "distribute_ms": []}
+    saved = []
+
+    def timed(module, name, key, describe):
+        inner = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            d = describe(*a, **kw)
+            if d is not None:
+                rec[key].append({"ms": (time.perf_counter() - t0) * 1e3, **d})
+            return out
+
+        saved.append((module, name, inner))
+        setattr(module, name, wrapped)
+
+    def ba_desc(p, iters_a=5, iters_b=10, mode="dense", **kw):
+        if mode != "cg":
+            return None      # the agents' local BA
+        rec["last_gba"] = (p, iters_a, iters_b)
+        return {"real": [int(p.cam_valid.sum()), int(p.pt_valid.sum()), int(p.obs_valid.sum())],
+                "bucket": [p.Tcw.shape[0], p.pts.shape[0], p.obs_cam.shape[0]],
+                "iters": [iters_a, iters_b]}
+
+    timed(ba, "bundle_adjust", "gba", ba_desc)
+    timed(pose_graph, "optimize_pose_graph", "pose_graph",
+          lambda nodes, ei, *a, **kw: {"nodes": int(nodes.R.shape[0]), "edges": int(ei.shape[0])})
+    timed(sim3, "ransac_sim3", "ransac_sim3", lambda pc1, *a, **kw: {"n": int(pc1.shape[0])})
+    timed(sim3_opt, "optimize_sim3", "optimize_sim3",
+          lambda s0, R0, t0, pc1, *a, **kw: {"n": int(pc1.shape[0])})
+    between = sim3_match.compute_sim3_between
+
+    def attempt(*a, **kw):
+        # a Sim3 attempt: the whole pipeline of one candidate pair, kept
+        # where it reached RANSAC (BoW match, RANSAC, guided match,
+        # optimize_sim3, neighbour check)
+        trace = []
+        t0 = time.perf_counter()
+        out = between(*a, **{**kw, "trace": trace})
+        stages = [st for st, _ in trace]
+        if "ransac" in stages:
+            rec["sim3_attempt"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                        "optimized": "opt" in stages, "accepted": out is not None})
+        return out
+
+    sim3_match.compute_sim3_between = attempt
+    saved.append((sim3_match, "compute_sim3_between", between))
+    dist = scheduler.MediatorScheduler.map_distribute
+
+    def map_distribute(self, agent_id):
+        t0 = time.perf_counter()
+        dist(self, agent_id)
+        rec["distribute_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    scheduler.MediatorScheduler.map_distribute = map_distribute
+    try:
+        yield rec
+    finally:
+        scheduler.MediatorScheduler.map_distribute = dist
+        for module, name, inner in saved:
+            setattr(module, name, inner)
+
+
+def _stat(xs) -> dict:
+    return {"n": len(xs), "median": _pct(xs, 50) if xs else None,
+            "p90": _pct(xs, 90) if xs else None}
+
+
+def _first_apart(xs) -> dict:
+    """The first of xs (a process's first call) apart from the rest's stats."""
+    return {"first": xs[0] if xs else None, **_stat(xs[1:])}
+
+
+def _serve_cell(cell: str, dev: torch.device) -> dict:
+    """One server cell on the card, the main path: its agents track their
+    sequences (`cells.Server.step`) with a state report every 5 frames and
+    a serve round every 10; `server_swarm` ends with `Server.finish`.  The
+    counts are set to 0 just before and read just after."""
+    from swarmmap_tpu_torch import cells
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.utils.stats import STATS
+
+    seqs = cells.server_sequences(cell)
+    settings = cells.settings_for(seqs[0].world)
+    n = len(seqs[0])
+    with cells.FrameClock() as clock:
+        srv = cells.Server(len(seqs), settings, dev, clock=clock)
+        log_ = cells.log_requests(srv.scheduler, srv.mediators)
+        inner, request_ms = srv.scheduler.process_request, []
+
+        def timed_request(agent_id, sl):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(agent_id, sl)
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+
+        srv.scheduler.process_request = timed_request
+        states = [[] for _ in seqs]          # per agent, its tracker's state per frame
+        after_distribute = [[] for _ in seqs]  # per agent, the frames after a distribute
+        mirror = []
+        t0 = time.perf_counter()
+        _reset_counts()
+        with record_pose_calls() as calls, _server_probes() as probes, \
+                cells.recorded_draws(kind="sim3") as draws:
+            for i in range(n):
+                n_dist = len(srv.distributed)
+                srv.step([s.read(i) for s in seqs], [s.timestamps[i] for s in seqs])
+                for a, agent in enumerate(srv.agents):
+                    states[a].append(agent.system.tracking.state.name)
+                for a, _ in srv.distributed[n_dist:]:
+                    after_distribute[a].append(i + 1)
+                merged = any(ok for rec in log_ for *_, ok in rec["merges"])
+                if (i + 1) % cells.SERVER_PUSH_EVERY == 0 and not merged:
+                    mirror.append(_replicas_mirror(srv))
+            if cell == "server_swarm":
+                srv.finish()
+            launches, _ = _read_counts()
+        seconds = time.perf_counter() - t0
+    stages = {name: [1e3 * x for x in STATS.times.get(name, [])] for name in SERVER_STAGES}
+    return {"cell": cell, "srv": srv, "seqs": seqs, "log": log_, "draws": list(draws),
+            "launches": launches, "calls": calls, "probes": probes, "stages": stages,
+            "request_ms": request_ms, "states": states, "after_distribute": after_distribute,
+            "mirror": mirror, "seconds": seconds}
+
+
+def _replicas_mirror(srv) -> list[str]:
+    """tests/test_swarm.py::test_server_replicas_mirror_clients on every
+    agent: every live client keyframe on the server but for the last 2,
+    and more than half the client's live points."""
+    out = []
+    for agent, med in zip(srv.agents, srv.mediators):
+        cst = agent.system.store
+        alive = {int(g) for g in cst.kf_gid[: cst.n_kf][cst.kf_alive[: cst.n_kf]]}
+        missing = alive - set(med.store.kf_by_gid)
+        if len(missing) > 2:
+            out.append(f"agent {agent.agent_id}: server misses {len(missing)} keyframes")
+        if not med.store.mp_alive.sum() > 0.5 * cst.mp_alive.sum():
+            out.append(f"agent {agent.agent_id}: server holds {int(med.store.mp_alive.sum())} "
+                       f"of the client's {int(cst.mp_alive.sum())} points")
+    return out
+
+
+def _server_holds(run: dict) -> list[str]:
+    """The JAX tests' assertions on one cell's card run."""
+    srv, seqs, cell = run["srv"], run["seqs"], run["cell"]
+    failed = [f"replicas before the first merge: {m}" for ms in run["mirror"] for m in ms]
+    n = len(seqs[0])
+    for a, (st, after) in enumerate(zip(run["states"], run["after_distribute"])):
+        tracked = sum(x == "OK" for x in st)
+        if not tracked > SERVER_TRACKED * n:
+            failed.append(f"agent {a} tracked {tracked} of {n} frames")
+        lost = [i for i in after if i < n and st[i] == "LOST"]
+        if lost:
+            failed.append(f"agent {a} lost at frames {lost}, after a distribute")
+    if cell == "server_swarm":
+        groups = srv.merged_groups()
+        if max(len(g) for g in groups) != len(seqs):
+            failed.append(f"maps not merged into one group: {groups}")
+        if not sum(e[2] for e in srv.map_manager.fuse_events) > 0:
+            failed.append(f"fuse matched nothing: {srv.map_manager.fuse_events}")
+    else:
+        from swarmmap_tpu_torch.utils.trajectory import ate_rmse
+
+        lc = srv.mediators[0].loop_closing
+        st = srv.mediators[0].store
+        loops = [x for rec in run["log"] for x in rec["loops"] if x[2]]
+        edges = sum(len(v) for v in st.kf_loop_edges.values())
+        if lc.n_loops_closed < 1 or not loops or edges < 2:
+            failed.append(f"loop not closed: {lc.n_loops_closed} loops, {edges} loop edges")
+        est, gt = [], []
+        for k in st.alive_kf_slots():
+            fi = int(round(st.kf_ts[k] * 20))
+            if fi < n:
+                est.append(np.linalg.inv(st.kf_pose_cw[k])[:3, 3])
+                gt.append(seqs[0].world.poses_wc[fi][:3, 3])
+        est, gt = np.stack(est), np.stack(gt)
+        run["ate"], run["span"] = float(ate_rmse(est, gt)), float(np.linalg.norm(gt.max(0) - gt.min(0)))
+        if not run["ate"] < 0.05 * run["span"]:
+            failed.append(f"ATE {run['ate']:.4f} on span {run['span']:.2f}")
+        # tests/test_scale_gauge.py: the keyframe spacing's scale holds over the lap
+        cst = srv.agents[0].system.store
+        alive = np.where(cst.kf_alive[: cst.n_kf])[0]
+        T = cst.kf_pose_cw[alive]
+        c_est = -np.einsum("kij,kj->ki", T[:, :3, :3].transpose(0, 2, 1), T[:, :3, 3])
+        fidx = np.clip(np.round(cst.kf_ts[alive] / 0.05).astype(int), 0, n - 1)
+        c_gt = seqs[0].world.poses_wc[fidx, :3, 3]
+        scales = [np.linalg.norm(c_est[i] - c_est[i - 5]) / np.linalg.norm(c_gt[i] - c_gt[i - 5])
+                  for i in range(5, len(alive), 5) if np.linalg.norm(c_gt[i] - c_gt[i - 5]) > 1e-6]
+        run["scale_ratio"] = float(np.mean(scales[-3:]) / max(np.mean(scales[:3]), 1e-9))
+        if not 0.5 < run["scale_ratio"] < 2.0:
+            failed.append(f"scale drifted {run['scale_ratio']:.3f}x over the circuit")
+    return failed
+
+
+def _same_decisions(a: dict, b: dict) -> bool:
+    """Two records of one request (`cells.log_requests`) agree: the same
+    new keyframes, loop corrections, merges, GBA iterations applied,
+    loops closed and last loop keyframes, groups and merge fuse events,
+    and loop fusions (`search_and_fuse`) within SERVER_LOOP_FUSED of each
+    other (a projection at a window's edge flips with the float32
+    differences of the essential graph)."""
+    (la, ga, fa), (lb, gb, fb) = a["after"], b["after"]
+    return ({k: v for k, v in a.items() if k != "after"}
+            == {k: v for k, v in b.items() if k != "after"}
+            and (ga, fa) == (gb, fb)
+            and [x[:2] for x in la] == [x[:2] for x in lb]
+            and all(abs(x[2] - y[2]) <= max(1, SERVER_LOOP_FUSED * x[2])
+                    for x, y in zip(la, lb)))
+
+
+def _server_on_cpu(run: dict) -> list[str]:
+    """The card run's events (state reports, push bytes, serve rounds,
+    finish) and its Sim3 draws replayed into the port's server on the CPU:
+    the same requests' decisions, GBA iterations applied and draws, and
+    replicas within SERVER_TOL."""
+    from swarmmap_tpu_torch import cells
+
+    srv = run["srv"]
+    with cells.FrameClock() as clock:
+        cpu = cells.Server(len(srv.mediators), srv.settings, "cpu", clock=clock, agents=False)
+        log_ = cells.log_requests(cpu.scheduler, cpu.mediators)
+        draws = list(run["draws"])
+        t0 = time.perf_counter()
+        with cells.replayed_draws(draws, kind="sim3"):
+            cpu.replay(srv.events)
+        run["cpu_seconds"] = time.perf_counter() - t0
+    failed = []
+    if draws:
+        failed.append(f"the CPU made {len(draws)} fewer Sim3 RANSACs")
+    if len(log_) != len(run["log"]):
+        failed.append(f"{len(log_)} requests on the CPU, {len(run['log'])} on the card")
+    for i, (a, b) in enumerate(zip(run["log"], log_)):
+        if not _same_decisions(a, b):
+            failed.append(f"request {i}: card {a} vs CPU {b}")
+            break
+    for i, (mg, mc) in enumerate(zip(srv.mediators, cpu.mediators)):
+        gaps = cells.replica_gaps(mg.store, mc.store, SERVER_TOL)
+        if gaps:
+            failed.append(f"replica {i}: {gaps}")
+    run["cpu_gaps"] = {i: cells.replica_gaps(mg.store, mc.store,
+                                             {"pose": 0.0, "pos": 0.0, "mp_alive": 0.0})
+                       for i, (mg, mc) in enumerate(zip(srv.mediators, cpu.mediators))}
+    return failed
+
+
+def phase_server(dev: torch.device) -> dict:
+    """The edge server on the card: `server_swarm` (3 agents on one
+    landmark field, 60 frames) and `server_loop` (one agent on the
+    circuit, 100 frames) at EuRoC geometry, each through the port's
+    MediatorScheduler (`cells.Server`); held to the JAX tests'
+    assertions (replicas mirror the clients before the first merge, one
+    group and fused points, the loop closed with a sane scale and ATE,
+    85% of frames tracked and no agent lost after a distribute), every
+    SERVER_HOLD_EVERY-th pose_lm launch to the plain version, and the
+    whole server run again on the CPU on the card's push bytes and Sim3
+    draws.  Prints per-request stage ms, GBA / pose-graph / Sim3 ms and
+    distribute bytes."""
+    from swarmmap_tpu_torch.ops import ba
+    from swarmmap_tpu_torch.profile_server import profiled
+
+    out, failures = {}, []
+    for cell in SERVER_CELLS:
+        run = _serve_cell(cell, dev)
+        failed = _server_holds(run) + _server_on_cpu(run)
+        p = run["probes"]
+        reqs = run["log"]
+        per_req = {name: _stat(ms) for name, ms in run["stages"].items()}
+        per_req["gba"] = _stat([r["ms"] for r in p["gba"]])
+        per_req["distribute"] = _stat(p["distribute_ms"])
+        summary = {
+            "cell": cell, "frames": len(run["seqs"][0]), "agents": len(run["seqs"]),
+            "requests": len(reqs), "seconds": run["seconds"], "cpu_replay_seconds": run["cpu_seconds"],
+            "per_request_ms": per_req,
+            # per bundle_adjust call: ms, real (C, P, O), LM iterations (a, b)
+            "gba_calls": [[round(r["ms"], 2), r["real"], r["iters"]] for r in p["gba"]],
+            "gba_iterations_applied": [n for rec in reqs for n in rec["gba"]],
+            "pose_graph": p["pose_graph"],
+            "sim3_ransac_ms": _first_apart([r["ms"] for r in p["ransac_sim3"]]),
+            "sim3_optimize_ms": _first_apart([r["ms"] for r in p["optimize_sim3"]]),
+            "sim3_attempt_ms": _first_apart([r["ms"] for r in p["sim3_attempt"]]),
+            "sim3_attempts_optimized_accepted": [
+                sum(r["optimized"] for r in p["sim3_attempt"]),
+                sum(r["accepted"] for r in p["sim3_attempt"])],
+            "distribute_bytes": _stat([b for _, b in run["srv"].distributed]),
+            "loops": [x for rec in reqs for x in rec["loops"]],
+            "merges": [x for rec in reqs for x in rec["merges"]],
+            "groups": [sorted(g) for g in run["srv"].merged_groups()],
+            "fuse_events": [list(e) for e in run["srv"].map_manager.fuse_events],
+            "tracked": [sum(x == "OK" for x in st) for st in run["states"]],
+            "launches": run["launches"], "cpu_gaps": run["cpu_gaps"],
+        }
+        for k in ("ate", "span", "scale_ratio"):
+            if k in run:
+                summary[k] = run[k]
+        # a request's whole pass (process_request: apply, loop detection,
+        # overlap, rank, virtual keyframe, GBA, distribute), to an idle card
+        summary["pass_ms"] = _stat(run["request_ms"])
+        # kernel launches of one GBA call: the cell's last, again, profiled
+        prob, a, b = p["last_gba"]
+        summary["gba_call_profiled"] = {
+            "real": [int(prob.cam_valid.sum()), int(prob.pt_valid.sum()),
+                     int(prob.obs_valid.sum())], "iters": [a, b],
+            **profiled(lambda: ba.bundle_adjust(prob, iters_a=a, iters_b=b, mode="cg",
+                                                cg_iters=32))[0]}
+        summary["pass_under_limit"] = bool(summary["pass_ms"]["median"] <= SERVER_LIMIT_MS)
+        log(f"server {cell}: " + json.dumps(summary, default=str))
+        if run["launches"] == 0:
+            failed.append("no pose_lm launch")
+        failures += [f"server {cell}: {f}" for f in failed]
+        held = run["calls"][::SERVER_HOLD_EVERY]
+        n_frames = len(run["seqs"][0]) * len(run["seqs"])
+        out[cell] = {"frames": n_frames, "launches": run["launches"],
+                     "launches_per_frame": run["launches"] / n_frames,
+                     "max_abs_err": _hold_to_plain(cell, held), "summary": summary}
+    if failures:     # both cells run first, so one call shows both
+        fail("; ".join(failures))
+    return out
+
+
 def phase_bench(cpu_inliers: dict) -> dict:
     """`python -m swarmmap_tpu_torch.bench` in this process, with the counts
     set to 0 just before and read just after: its JSON line, and its
@@ -958,6 +1320,7 @@ def main() -> None:
     import swarmmap_tpu_torch  # noqa: F401  (precision pins)
 
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
     kind = phase_device()
     phase_build()
     worst, synthetic_ms = phase_pose_kernel(dev)
@@ -974,6 +1337,11 @@ def main() -> None:
     sync = phase_sync(dev, mono["states"])
     tracker_paths["sync"] = {k: sync[k] for k in (
         "frames", "launches", "launches_per_frame", "max_abs_err")}
+    t_server = time.perf_counter()
+    for cell, run in phase_server(dev).items():
+        tracker_paths[cell] = {k: run[k] for k in (
+            "frames", "launches", "launches_per_frame", "max_abs_err")}
+    log(f"server phases: {time.perf_counter() - t_server:.1f} s")
     worst = max(worst, *(p["max_abs_err"] for p in tracker_paths.values()))
     bench_run = phase_bench(cpu_inliers)
     times = phase_times(cells)
@@ -1002,6 +1370,7 @@ def main() -> None:
         "synthetic_ms": synthetic_ms,
         "streaming_build": streaming,
     }]
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

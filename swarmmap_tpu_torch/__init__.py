@@ -13,12 +13,15 @@ Layer map (ported so far):
             the map store, the keyframe database
   ops/      device programs: pyramid, FAST, orientation, rBRIEF, matching,
             LM pose optimisation (CUDA kernel: csrc/pose_lm.cu), RANSAC
-            PnP, two-view initialisation, triangulation, dense bundle
-            adjustment; the BoW vocabulary
+            PnP, two-view initialisation, triangulation, bundle
+            adjustment (dense and CG), Sim3 RANSAC and refinement, the
+            essential-graph optimiser; the BoW vocabulary
   pipeline  the fused per-frame tracking step, batched over agents
   sync/     the change log with push / pull (oplog.py), the msgpack wire
             and map files (codec.py over msgpack_wire.py), the reference's
             boost text wire and binary map files
+  server/   the edge server: per-client replicas (mediator.py), the STS
+            scheduler, loop closing, map merge and joint group BA
   swarm     SwarmAgent: one client with its change log and sync endpoints
   bench     bench.py's tracking metrics for the port on the card
   native    host C++ (csrc/*.cc, g++ + ctypes): quadtree keypoint budgets,

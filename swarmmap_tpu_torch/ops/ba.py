@@ -1,7 +1,7 @@
-"""Bundle adjustment, dense Schur backend — the g2o replacement of local
-mapping and two-view initialisation.
+"""Bundle adjustment — the g2o replacement of local mapping, two-view
+initialisation and the server's global BA.
 
-Port of the dense path of swarmmap_tpu/ops/ba.py (reference spec:
+Port of the dense and CG paths of swarmmap_tpu/ops/ba.py (reference spec:
 Optimizer::LocalBundleAdjustment and Optimizer::GlobalBundleAdjustment —
 Levenberg-Marquardt over camera SE(3) and point vertices with monocular
 reprojection edges, Huber delta sqrt(5.991), a 5+10 iteration schedule
@@ -18,9 +18,10 @@ device.  The LM loop runs on
 the device: accept or reject is a `torch.where` on the robust cost, never
 a host read.
 
-The conjugate-gradient backend of global BA (`mode="cg"`) and
-`bundle_adjust_sharded` are not ported yet (ROADMAP queue 1, items 15
-and 17).
+The conjugate-gradient backend of global BA (`mode="cg"`) never builds
+W: each Schur matvec is two segment sums through the same plan, and its
+32 iterations run with no host sync.  The observation-sharded
+`bundle_adjust_sharded` is not ported yet (ROADMAP queue 1, item 17).
 """
 from __future__ import annotations
 
@@ -200,29 +201,36 @@ class Segments(NamedTuple):
 class SegmentPlan(NamedTuple):
     cam: Segments       # by obs_cam, n = C
     pt: Segments        # by obs_pt, n = P
-    pt_cam: Segments    # by (obs_pt, obs_cam), n = P*C
+    pt_cam: Segments | None  # by (obs_pt, obs_cam), n = P*C; the dense backend's
 
 
-def segment_plan(p: BAProblem) -> SegmentPlan:
+def segments(key: np.ndarray, rows: np.ndarray, n: int,
+             device: torch.device | str) -> Segments:
+    """The plan of a segment sum of the rows `rows` of a per-row tensor
+    into segments key[row] in [0, n), built on the host: the rows sorted
+    stably by key, each given the next free slot of its segment."""
+    order = np.argsort(key[rows], kind="stable")
+    src, k = rows[order], key[rows][order]
+    counts = np.bincount(k, minlength=n)
+    width = max(int(counts.max(initial=0)), 1)
+    rank = np.arange(len(k)) - (np.cumsum(counts) - counts)[k]
+    return Segments(torch.from_numpy(src).to(device),
+                    torch.from_numpy(k * width + rank).to(device), n, width)
+
+
+def segment_plan(p: BAProblem, pt_cam: bool = True) -> SegmentPlan:
     """The segment sums' plans of one problem, built on the host from its
     fixed observation graph (one read of three [O] tensors per BA).
     Padded observations are left out: their IRLS weight is 0, so they add
-    exactly 0 to every sum."""
+    exactly 0 to every sum.  pt_cam=False leaves out the dense backend's
+    [P*C] plan, which the CG backend never needs."""
     n_cams, n_pts = p.Tcw.shape[0], p.pts.shape[0]
     cam, pt = p.obs_cam.cpu().numpy(), p.obs_pt.cpu().numpy()
     rows = np.flatnonzero(p.obs_valid.cpu().numpy())
-
-    def segments(key, n):
-        order = np.argsort(key[rows], kind="stable")
-        src, k = rows[order], key[rows][order]
-        counts = np.bincount(k, minlength=n)
-        width = max(int(counts.max(initial=0)), 1)
-        rank = np.arange(len(k)) - (np.cumsum(counts) - counts)[k]
-        return Segments(torch.from_numpy(src).to(p.obs_cam.device),
-                        torch.from_numpy(k * width + rank).to(p.obs_cam.device), n, width)
-
-    return SegmentPlan(segments(cam, n_cams), segments(pt, n_pts),
-                       segments(pt * n_cams + cam, n_pts * n_cams))
+    dev = p.obs_cam.device
+    return SegmentPlan(segments(cam, rows, n_cams, dev), segments(pt, rows, n_pts, dev),
+                       segments(pt * n_cams + cam, rows, n_pts * n_cams, dev)
+                       if pt_cam else None)
 
 
 def _segment_sum(x, seg: Segments):
@@ -271,14 +279,59 @@ def _dense_schur_solve(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan):
     return dxc, dxp
 
 
-def _lm_phase(p: BAProblem, plan: SegmentPlan, Tcw, pts, active, iters):
+def _cg_schur_solve(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan, cg_iters: int):
+    """The reduced camera system solved by Jacobi-preconditioned conjugate
+    gradients, never materialising W: each Schur matvec is two segment
+    sums over the observations.  cg_iters fixed iterations, no host sync."""
+    bc, bp, dHcc, Hpp_inv = _common_blocks(r, Jc, Jp, w, p, lam, plan)
+
+    def Wt_v(v):  # [C,6] -> [P,3] :  W^T v
+        t = torch.einsum("oik,ok->oi", Jc, v[p.obs_cam])
+        return _segment_sum(torch.einsum("oik,o,oi->ok", Jp, w, t), plan.pt)
+
+    def W_y(y):  # [P,3] -> [C,6] :  W y
+        t = torch.einsum("oik,ok->oi", Jp, y[p.obs_pt])
+        return _segment_sum(torch.einsum("oik,o,oi->ok", Jc, w, t), plan.cam)
+
+    def S_mv(v):
+        hv = torch.einsum("cij,cj->ci", dHcc, v)
+        return hv - W_y(torch.einsum("pjk,pk->pj", Hpp_inv, Wt_v(v)))
+
+    Minv = _6x6_inv(dHcc)
+    b_s = bc - W_y(torch.einsum("pjk,pk->pj", Hpp_inv, bp))
+    x = torch.zeros_like(b_s)
+    rr = b_s - S_mv(x)
+    zz = torch.einsum("cij,cj->ci", Minv, rr)
+    pp = zz
+    rz = torch.sum(rr * zz)
+    for _ in range(cg_iters):
+        Ap = S_mv(pp)
+        alpha = rz / torch.clamp(torch.sum(pp * Ap), min=1e-12)
+        x = x + alpha * pp
+        rr = rr - alpha * Ap
+        zz = torch.einsum("cij,cj->ci", Minv, rr)
+        rz_new = torch.sum(rr * zz)
+        pp = zz + rz_new / torch.clamp(rz, min=1e-12) * pp
+        rz = rz_new
+    dxp = torch.einsum("pjk,pk->pj", Hpp_inv, bp - Wt_v(x))
+    return x, dxp
+
+
+def _6x6_inv(H):
+    """Batched inverse of the damped camera blocks; inv_ex, so no error
+    check and no host sync."""
+    return torch.linalg.inv_ex(H)[0]
+
+
+def _lm_phase(p: BAProblem, plan: SegmentPlan, Tcw, pts, active, iters, solve):
     """`iters` LM steps on the active observations; a step is kept where
-    it lowers the robust cost (lambda x0.5), else dropped (lambda x4)."""
+    it lowers the robust cost (lambda x0.5), else dropped (lambda x4).
+    solve(r, Jc, Jp, w, p, lam, plan) -> (dxc, dxp) is the backend."""
     moving = ~(p.cam_fixed | ~p.cam_valid)
     lam = torch.tensor(1e-4, dtype=Tcw.dtype, device=Tcw.device)
     for _ in range(iters):
         r, Jc, Jp, w = _linearize(Tcw, pts, p, active)
-        dxc, dxp = _dense_schur_solve(r, Jc, Jp, w, p, lam, plan)
+        dxc, dxp = solve(r, Jc, Jp, w, p, lam, plan)
         # guard fixed cams / dead points
         dxc = dxc * moving[:, None]
         dxp = dxp * p.pt_valid[:, None]
@@ -303,18 +356,23 @@ def bundle_adjust(
 ) -> BAResult:
     """Two-phase BA mirroring the reference schedule: iters_a LM steps,
     chi-square outlier pruning, iters_b more steps, final classification.
-    Runs on the problem's device."""
-    if mode != "dense":
-        raise NotImplementedError(
-            f"bundle_adjust(mode={mode!r}): the conjugate-gradient Schur backend of "
-            "global BA is not ported yet (ROADMAP queue 1, item 15)")
+    mode="dense" solves the reduced camera system exactly (local BA);
+    mode="cg" by cg_iters conjugate-gradient steps (global BA).  Runs on
+    the problem's device."""
+    if mode == "dense":
+        solve = _dense_schur_solve
+    elif mode == "cg":
+        def solve(*args):
+            return _cg_schur_solve(*args, cg_iters=cg_iters)
+    else:
+        raise ValueError(f"bundle_adjust: unknown mode {mode!r}")
     dtype = p.Tcw.dtype
-    plan = segment_plan(p)
-    Tcw, pts = _lm_phase(p, plan, p.Tcw, p.pts, p.obs_valid.to(dtype), iters_a)
+    plan = segment_plan(p, pt_cam=mode == "dense")
+    Tcw, pts = _lm_phase(p, plan, p.Tcw, p.pts, p.obs_valid.to(dtype), iters_a, solve)
     r, z = _residual_only(Tcw, pts, p)
     chi2 = torch.sum(r * r, 1) * p.obs_inv_sigma2
     keep = p.obs_valid & (chi2 <= chi2_th) & (z > 0)
-    Tcw, pts = _lm_phase(p, plan, Tcw, pts, keep.to(dtype), iters_b)
+    Tcw, pts = _lm_phase(p, plan, Tcw, pts, keep.to(dtype), iters_b, solve)
     r, z = _residual_only(Tcw, pts, p)
     chi2 = torch.sum(r * r, 1) * p.obs_inv_sigma2
     inlier = p.obs_valid & (chi2 <= chi2_th) & (z > 0)

@@ -222,7 +222,8 @@ def sim3_log(R, t, s):
     w = so3_log(R)
     sigma = torch.log(s)
     Wmat = _sim3_W(w, sigma, s)
-    v = torch.linalg.solve(Wmat, t[..., None])[..., 0]
+    # solve_ex: no error check, so no host sync inside the LM loops
+    v = torch.linalg.solve_ex(Wmat, t[..., None])[0][..., 0]
     return torch.cat([w, v, sigma[..., None]], -1)
 
 
@@ -233,3 +234,39 @@ def project(K: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     fx, fy = K[..., 0, 0, None], K[..., 1, 1, None]
     cx, cy = K[..., 0, 2, None], K[..., 1, 2, None]
     return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], -1)
+
+
+
+def sim3_adjoint(R, t, s):
+    """[..., 7, 7] Ad(S) of S = (R, t, s) on (omega, upsilon, sigma):
+    S exp(xi) S^-1 = exp(Ad(S) xi)."""
+    batch = R.shape[:-2]
+    z3, z31 = R.new_zeros(batch + (3, 3)), R.new_zeros(batch + (3, 1))
+    top = torch.cat([R, z3, z31], -1)
+    mid = torch.cat([hat(t) @ R, s[..., None, None] * R, -t[..., None]], -1)
+    bot = torch.cat([R.new_zeros(batch + (1, 6)), R.new_ones(batch + (1, 1))], -1)
+    return torch.cat([top, mid, bot], -2)
+
+
+def sim3_ad(xi: torch.Tensor) -> torch.Tensor:
+    """[..., 7, 7] ad(xi), the Lie bracket [xi, .] of sim(3)."""
+    w, v, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    batch = xi.shape[:-1]
+    W = hat(w)
+    z3, z31 = xi.new_zeros(batch + (3, 3)), xi.new_zeros(batch + (3, 1))
+    top = torch.cat([W, z3, z31], -1)
+    mid = torch.cat([hat(v), W + sigma[..., None, None] * _eye3(xi), -v[..., None]], -1)
+    return torch.cat([top, mid, xi.new_zeros(batch + (1, 7))], -2)
+
+
+def sim3_left_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
+    """[..., 7, 7] inverse left Jacobian of sim(3) at xi, the series
+    sum_n B_n / n! ad(xi)^n to n = 8: log(exp(a) exp(xi)) = xi +
+    J^-1(xi) a + O(|a|^2).  The first omitted term is |ad(xi)|^10 / 4.8e7
+    of the whole, below float32's resolution for |xi| < 3."""
+    A = sim3_ad(xi)
+    A2 = A @ A
+    A4 = A2 @ A2
+    eye7 = torch.eye(7, dtype=xi.dtype, device=xi.device)
+    return (eye7 - 0.5 * A + A2 / 12.0 - A4 / 720.0 + (A4 @ A2) / 30240.0
+            - (A4 @ A4) / 1209600.0)

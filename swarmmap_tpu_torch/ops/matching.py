@@ -1,7 +1,7 @@
 """Batched data association.
 
-Port of the tracker's part of swarmmap_tpu/ops/matching.py (reference
-spec: ORBmatcher — SearchByProjection, rotation-histogram consistency).
+Port of swarmmap_tpu/ops/matching.py (reference spec: ORBmatcher —
+SearchByProjection, SearchBySim3, rotation-histogram consistency).
 Every search is the same dense program: an [Nq, Nt] candidate mask, one
 Hamming matrix, a masked top-2 per row, optional rotation filter, and the
 mutual-best cross-check.  All functions take leading batch dims.
@@ -173,6 +173,60 @@ def predicted_octave(
     log_scale = torch.log(torch.tensor(scale, dtype=torch.float32))
     lvl = torch.ceil(torch.log(ratio) / log_scale.item()).to(torch.int32)
     return torch.clamp(lvl, 0, n_levels - 1)
+
+
+def sim3_guided_match(
+    pc1, mp_ok1, mp_desc1, mind1, maxd1,
+    uv1, oct1, kp_ok1, desc_kf1, K1, hw1,
+    pc2, mp_ok2, mp_desc2, mind2, maxd2,
+    uv2, oct2, kp_ok2, desc_kf2, K2, hw2,
+    s12, R12, t12, th: float, scale: float, n_levels: int,
+):
+    """Mutual Sim3-guided matching (reference: ORBmatcher::SearchBySim3,
+    ORBmatcher.cc:1011-1222).
+
+    Inputs are per-keypoint tensors of the two keyframes: `pcX` = each
+    keypoint's map-point position in ITS OWN camera frame, `mp_okX` gates
+    keypoints that hold an alive, not-already-matched map point; hwX is
+    (height, width).  (s12, R12, t12) maps camera-2 coords into camera-1
+    coords.  Each direction projects one side's points into the other
+    image, window-searches with the scale-invariance and predicted-octave
+    gates, and a pair survives only when both directions agree (the
+    reference's vnMatch1/vnMatch2 cross-check).  Returns (idx2, valid)
+    over KF1's keypoints."""
+    sR12 = s12 * R12
+    sR21 = (1.0 / s12) * R12.T
+    t21 = -(sR21 @ t12)
+    scale_f32 = torch.tensor(scale, dtype=torch.float32)
+
+    def direction(pc_s, ok_s, desc_s, mind_s, maxd_s,
+                  sR, tt, K_t, uv_t, oct_t, okkp_t, desc_t, hw_t):
+        pt = pc_s @ sR.T + tt
+        z = pt[:, 2]
+        dist = torch.linalg.norm(pt, dim=1)
+        u = K_t[0, 0] * pt[:, 0] / torch.clamp(z, min=1e-6) + K_t[0, 2]
+        v = K_t[1, 1] * pt[:, 1] / torch.clamp(z, min=1e-6) + K_t[1, 2]
+        vis = (
+            ok_s & (z > 0.0)
+            & (u >= 0) & (u < hw_t[1]) & (v >= 0) & (v < hw_t[0])
+            & (dist >= mind_s) & (dist <= maxd_s)
+        )
+        pred = predicted_octave(dist, maxd_s, scale, n_levels)
+        radius = th * scale_f32.to(pt.device) ** pred.to(torch.float32)
+        mask = window_mask(
+            torch.stack([u, v], 1), uv_t, radius, vis, okkp_t,
+            t_octave=oct_t, oct_lo=pred - 1, oct_hi=pred,
+        )
+        m = masked_match(desc_s, desc_t, mask, max_dist=TH_HIGH, ratio=0.0, resolve=False)
+        return m.idx, m.valid
+
+    i12, v12 = direction(pc1, mp_ok1, mp_desc1, mind1, maxd1,
+                         sR21, t21, K2, uv2, oct2, kp_ok2, desc_kf2, hw2)
+    i21, v21 = direction(pc2, mp_ok2, mp_desc2, mind2, maxd2,
+                         sR12, t12, K1, uv1, oct1, kp_ok1, desc_kf1, hw1)
+    qi = torch.arange(pc1.shape[0], dtype=torch.int32, device=pc1.device)
+    agree = v12 & v21[i12.long()] & (i21[i12.long()] == qi)
+    return i12, agree
 
 
 def project_to_frame(

@@ -1,5 +1,6 @@
-"""Parity of the port's dense bundle adjustment (swarmmap_tpu_torch.ops.ba)
-with the JAX package's on the CPU, on tests/test_ba.py's problems.
+"""Parity of the port's bundle adjustment (swarmmap_tpu_torch.ops.ba, the
+dense and CG backends) with the JAX package's on the CPU, on
+tests/test_ba.py's problems.
 
 Bars: |dTcw| < 1e-3, points within 1e-3 relative, and `obs_inlier` equal
 except for observations whose final chi2 lies within 1% of the 5.991 bar
@@ -134,20 +135,21 @@ def test_first_step_is_as_close_to_float64_as_jax(rng):
         assert port <= 2 * jax, (port, jax)
 
 
+@pytest.mark.parametrize("mode", ["dense", "cg"])
 @pytest.mark.parametrize("threads", [1, 4])
-def test_dense_ba_same_bits_every_run(rng, threads):
+def test_dense_ba_same_bits_every_run(rng, threads, mode):
     """Two runs of one BA give the same bits, with one torch thread or
-    several: every segment sum is a copy to unique slots and a sum, with
-    no accumulation whose order depends on threads.  The problem is large
-    enough (O*18 >= 32768) for torch's CPU kernels to split their work
-    across threads."""
+    several, on either backend: every segment sum is a copy to unique
+    slots and a sum, with no accumulation whose order depends on threads.
+    The problem is large enough (O*18 >= 32768) for torch's CPU kernels to
+    split their work across threads."""
     prob, _, _ = make_ba_problem(rng, n_cams=10, n_pts=300)
     assert int(np.asarray(prob.obs_valid).sum()) * 18 >= 32768
     pb = _to_port(prob)
     n = torch.get_num_threads()
     torch.set_num_threads(threads)
     try:
-        r1, r2 = (ba.bundle_adjust(pb) for _ in range(2))
+        r1, r2 = (ba.bundle_adjust(pb, mode=mode) for _ in range(2))
     finally:
         torch.set_num_threads(n)
     for f in ba.BAResult._fields:
@@ -176,6 +178,18 @@ def test_segment_sum_matches_index_add():
 
 
 def test_cg_mode_is_not_ported(rng):
-    prob, _, _ = make_ba_problem(rng, n_cams=4, n_pts=30)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ba.bundle_adjust(_to_port(prob), mode="cg")
+    """The CG backend of global BA (`mode="cg"`), ported since: on
+    tests/test_ba.py::test_global_ba_cg_converges's problem, the dense
+    BA's parity bars against JAX's CG, and JAX's convergence bars on the
+    port (the name is kept from when the mode raised)."""
+    prob, Tcw_gt, pts_gt = make_ba_problem(rng, n_cams=12, n_pts=300)
+    ra = jba.bundle_adjust(prob, mode="cg", cg_iters=40)
+    rb = ba.bundle_adjust(_to_port(prob), mode="cg", cg_iters=40)
+    _assert_agrees(ra, rb)
+    angs, dts = cam_errors(rb.Tcw.numpy(), Tcw_gt)
+    assert angs.max() < 0.15 and dts.max() < 0.02
+    err = np.linalg.norm(rb.pts.numpy() - pts_gt, axis=1)
+    assert np.median(err) < 0.03
+    assert rb.obs_inlier.float().mean() > 0.95
+    with pytest.raises(ValueError, match="unknown mode"):
+        ba.bundle_adjust(_to_port(prob), mode="sparse")

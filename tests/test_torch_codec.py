@@ -3,7 +3,7 @@ tests/test_boost_codec.py (the reference's boost text wire and binary map
 files, on the fixtures of docs/boost_wire.md) run on both packages, with
 every encoded stream the same bytes and every decoded object and applied
 store equal, exactly (the map stores' clocks made one counter, as in
-tests/test_torch_sync.py).  The mediator's export waits for the port's server.
+tests/test_torch_sync.py), the server mediator's map export included.
 Then the port's msgpack packer (sync/msgpack_wire.py) is held to the
 `msgpack` package on random nested objects with ndarrays: the same bytes,
 and the same objects back.
@@ -18,12 +18,18 @@ from hypothesis import strategies as hs
 
 import swarmmap_tpu.core.map_store as jax_map_store
 import swarmmap_tpu.core.tracking as jax_tracking
+import swarmmap_tpu.ops.vocab as jax_vocab
+import swarmmap_tpu.server.map_manager as jax_mm
+import swarmmap_tpu.server.mediator as jax_med
 import swarmmap_tpu.sync.boost_bin as jax_bb
 import swarmmap_tpu.sync.boost_text as jax_bt
 import swarmmap_tpu.sync.codec as jax_codec
 import swarmmap_tpu.sync.oplog as jax_oplog
 import swarmmap_tpu_torch.core.map_store as port_map_store
 import swarmmap_tpu_torch.core.tracking as port_tracking
+import swarmmap_tpu_torch.ops.vocab as port_vocab
+import swarmmap_tpu_torch.server.map_manager as port_mm
+import swarmmap_tpu_torch.server.mediator as port_med
 import swarmmap_tpu_torch.sync.boost_bin as port_bb
 import swarmmap_tpu_torch.sync.boost_text as port_bt
 import swarmmap_tpu_torch.sync.codec as port_codec
@@ -35,10 +41,14 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 PKGS = {
     name: SimpleNamespace(bt=bt, bb=bb, codec=cd, MapStore=ms.MapStore, Mapit=ol.Mapit,
                           MapSlice=ol.MapSlice, UpdateRecord=ol.UpdateRecord,
-                          SystemState=tr.SystemState)
-    for name, bt, bb, cd, ms, ol, tr in (
-        ("jax", jax_bt, jax_bb, jax_codec, jax_map_store, jax_oplog, jax_tracking),
-        ("port", port_bt, port_bb, port_codec, port_map_store, port_oplog, port_tracking))
+                          SystemState=tr.SystemState, AgentMediator=med.AgentMediator,
+                          MapManager=lambda mm=mm, kw=kw: mm.MapManager(**kw),
+                          vocab=voc.default_vocabulary, kw=kw)
+    for name, bt, bb, cd, ms, ol, tr, med, mm, voc, kw in (
+        ("jax", jax_bt, jax_bb, jax_codec, jax_map_store, jax_oplog, jax_tracking,
+         jax_med, jax_mm, jax_vocab, {}),
+        ("port", port_bt, port_bb, port_codec, port_map_store, port_oplog, port_tracking,
+         port_med, port_mm, port_vocab, {"device": "cpu"}))
 }
 
 
@@ -197,21 +207,42 @@ def reference_bin_map_loads_through_codec(P):
     return [data, own], (back, st, P.codec.decode_slice(own))
 
 
+def mediator_boost_bin_export(P):
+    """AgentMediator.save_map(fmt="boost-bin") writes a reference-layout
+    map file that decode_map_bin reads back."""
+    import tempfile
+    from pathlib import Path
+
+    P.AgentMediator.registry.clear()
+    med = P.AgentMediator(1, P.vocab(), P.MapManager(), n_kp=16, **P.kw)
+    P.Mapit(med.store).apply_slice(_toy_slice(P))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "map-server-1.bin"
+        med.save_map(out, fmt="boost-bin")
+        data = out.read_bytes()
+    kfs, mps, inverted, max_id = back = P.bb.decode_map_bin(data)
+    assert len(kfs) == 1 and len(mps) == 1
+    assert kfs[0]["gid"] == 1000000
+    return [data], back
+
+
 CASES = [
     request_fixture_decode, request_roundtrip_exact_bytes, system_state_fixture_decode,
     system_state_roundtrip, float_formats_match_cxx_ostream, update_records_roundtrip,
     trigger_funcs_encode_as_int_and_drop_on_decode, map_slice_roundtrip,
     map_slice_applies_to_store, virtual_kf_sentinel_frame_id_roundtrips,
     binary_map_file_roundtrip, reference_bin_map_loads_through_codec,
+    mediator_boost_bin_export,
 ]
 
 
 def test_codec_cases_cover_test_boost_codec():
-    """Every case of tests/test_boost_codec.py but the mediator's export."""
+    """Every case of tests/test_boost_codec.py has its case here (the
+    mediator's export since the port has its server)."""
     import test_boost_codec as ref
 
     names = {n[len("test_"):] for n in dir(ref) if n.startswith("test_")}
-    assert names - {f.__name__ for f in CASES} == {"mediator_boost_bin_export"}
+    assert names - {f.__name__ for f in CASES} == set()
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda f: f.__name__)

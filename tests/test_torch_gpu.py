@@ -2,7 +2,9 @@
 kernel (csrc/pose_lm.cu, its register and streaming builds) against its
 plain PyTorch version, the batched tracking step and the per-agent tracker
 on the card against the same on the CPU, RANSAC PnP with its refinement
-through the kernel, and a map saved, loaded and relocalised against.
+through the kernel, a map saved, loaded and relocalised against, and the
+server's device programs (the CG bundle adjustment and the pose graph,
+bit-equal across card runs) and one server request, card against CPU.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -291,3 +293,165 @@ def test_save_load_map_relocalises_on_gpu(cuda, tmp_path):
         assert sum(ok) >= 2, ok
         rows = against_plain(calls)
         assert rows and all(r["err"] < 1e-3 and r["agree"] > 0.98 for r in rows), rows
+
+
+def _ba_problem(device, n_cams=8, n_pts=300):
+    """test_dense_ba_on_gpu_matches_cpu's problem on `device`."""
+    from swarmmap_tpu_torch.ops import ba, lie
+
+    rng = np.random.RandomState(0)
+    K = np.array([[450.0, 0, 320], [0, 450.0, 240], [0, 0, 1]])
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(5, 9, n_pts)], 1)
+    Tcw = np.tile(np.eye(4), (n_cams, 1, 1))
+    Tcw[:, 0, 3] = -0.4 * np.arange(n_cams)
+    obs = [(c, j) for c in range(n_cams) for j in range(n_pts) if rng.rand() > 0.3]
+    cam, pt = np.array(obs).T
+    pc = pts[pt] + Tcw[cam, :3, 3]
+    uv = pc[:, :2] / pc[:, 2:] * 450.0 + K[:2, 2] + rng.normal(0, 0.5, (len(obs), 2))
+    jitter = lie.se3_exp(torch.tensor(rng.randn(n_cams, 6) * 0.01, dtype=torch.float32)).numpy()
+    return ba.build_padded_problem(jitter @ Tcw, np.tile(K, (n_cams, 1, 1)), np.arange(n_cams) < 2,
+                                   pts + rng.normal(0, 0.05, pts.shape), cam, pt, uv,
+                                   np.ones(len(obs)), device=device)
+
+
+def test_cg_ba_on_gpu_matches_cpu(cuda):
+    """The CG backend of global BA on the card and on the CPU: |dTcw| <
+    1e-3, points within 1e-3 relative; two card runs give the same bits."""
+    from swarmmap_tpu_torch.ops import ba
+
+    prob = _ba_problem(cuda)
+    rc, rc2 = (ba.bundle_adjust(prob, mode="cg") for _ in range(2))
+    rp = ba.bundle_adjust(_ba_problem("cpu"), mode="cg")
+    assert all(torch.equal(getattr(rc, f), getattr(rc2, f)) for f in ba.BAResult._fields)
+    assert float((rc.Tcw.cpu() - rp.Tcw).abs().max()) < 1e-3
+    rel = (rc.pts.cpu() - rp.pts).abs().amax(1) / rp.pts.abs().amax(1).clamp(min=1e-6)
+    assert float(rel.max()) < 1e-3
+
+
+def test_pose_graph_on_gpu_same_bits(cuda):
+    """The essential-graph optimiser on a drifted 24-node chain with a loop
+    edge: two card runs give the same bits (its blocks are summed through
+    a presorted plan, no atomics), and the card agrees with the CPU to
+    1e-4."""
+    from swarmmap_tpu_torch.ops import lie, pose_graph
+
+    g = torch.Generator().manual_seed(0)
+    n = 24
+    steps = torch.randn(n - 1, 7, generator=g) * 0.15
+    steps[:, 6] *= 0.1
+    R, t, s = [torch.eye(3)], [torch.zeros(3)], [torch.tensor(1.0)]
+    for i in range(n - 1):
+        Ri, ti, si = lie.sim3_mul(*lie.sim3_exp(steps[i]), R[-1], t[-1], s[-1])
+        R.append(Ri), t.append(ti), s.append(si)
+    R, t, s = torch.stack(R), torch.stack(t), torch.stack(s)
+    ei = torch.cat([torch.arange(n - 1), torch.tensor([0])])
+    ej = torch.cat([torch.arange(1, n), torch.tensor([n - 1])])
+    mR, mt, ms = lie.sim3_mul(R[ej], t[ej], s[ej], *lie.sim3_inv(R[ei], t[ei], s[ei]))
+    noise = torch.randn(n, 7, generator=g) * 0.02 * torch.arange(n)[:, None] / n
+    R0, t0, s0 = lie.sim3_mul(*lie.sim3_exp(noise), R, t, s)
+    fixed = torch.arange(n) == 0
+    args = (R0, t0, s0, ei, ej, mR, mt, ms, torch.ones(n, dtype=torch.bool), fixed,
+            torch.ones(n, dtype=torch.bool))
+
+    def run(dev):
+        R_, t_, s_, *rest = (x.to(dev) for x in args)
+        return pose_graph.optimize_pose_graph(pose_graph.Sim3Nodes(R_, t_, s_), *rest)
+
+    a, b, c = run(cuda), run(cuda), run("cpu")
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y)
+        assert float((x.cpu() - z).abs().max()) < 1e-4
+
+
+def test_server_request_on_gpu_matches_cpu(cuda):
+    """One server request on the card and on the CPU on the same push
+    bytes (a CPU client's first push on the circuit at 240x320, 400
+    features, 4 levels), with one clock and the card's Sim3 draws replayed
+    on the CPU: the same new keyframes and decisions, GBA iterations
+    applied, and replicas within the server phase's bars."""
+    from swarmmap_tpu_torch import cells
+
+    seqs = cells.server_sequences("server_loop", hw=(240, 320), n_points=700)
+    settings = cells.settings_for(seqs[0].world, 400, 4)
+    with cells.FrameClock() as clock:
+        client = cells.Server(1, settings, "cpu", clock=clock)
+        cells.serve_sequences(client, seqs, n=20, push_every=20, report_every=5)
+        events = client.events
+        runs = {}
+        for dev in (cuda, "cpu"):
+            srv = cells.Server(1, settings, dev, clock=clock, agents=False)
+            log = cells.log_requests(srv.scheduler, srv.mediators)
+            if dev == "cpu":
+                with cells.replayed_draws(draws, kind="sim3"):
+                    srv.replay(events)
+            else:
+                with cells.recorded_draws(kind="sim3") as draws:
+                    srv.replay(events)
+            runs[str(dev)] = (srv, log)
+    (gpu, glog), (cpu, clog) = runs[str(cuda)], runs["cpu"]
+    assert [e[0] for e in events].count("push") == 1
+    assert len(glog) == 1 and glog == clog
+    assert glog[0]["new_kfs"] and glog[0]["gba"] == [10]
+    assert not cells.replica_gaps(gpu.mediators[0].store, cpu.mediators[0].store,
+                                  {"pose": 2e-3, "pos": 1e-2, "mp_alive": 0.01})
+
+
+def test_background_gba_on_gpu(cuda):
+    """The scheduler's background GBA (`background_gba=True`) issues its
+    card work from a second host thread: it runs to its end on the card
+    and applies under store.lock (the anchor kept, the other keyframes
+    moved), within 1e-3 of the same pass on the CPU."""
+    from swarmmap_tpu_torch.ops.vocab import default_vocabulary
+    from swarmmap_tpu_torch.server.map_manager import MapManager
+    from swarmmap_tpu_torch.server.mediator import AgentMediator
+    from swarmmap_tpu_torch.server.scheduler import MediatorScheduler
+    from swarmmap_tpu_torch.swarm import SwarmAgent
+    from swarmmap_tpu_torch.utils.config import CameraConfig, OrbConfig, Settings
+
+    vocab = default_vocabulary()
+    settings = Settings(camera=CameraConfig(fx=100, fy=100, cx=32, cy=32, fps=20,
+                                            width=64, height=64),
+                        orb=OrbConfig(n_features=64, n_levels=3))
+    agent = SwarmAgent(0, settings, vocab, device="cpu")
+    st = agent.system.store
+    rng = np.random.RandomState(0)
+    K = settings.camera.K
+    pts = np.stack([rng.uniform(-1, 1, 60), rng.uniform(-1, 1, 60), rng.uniform(3, 5, 60)],
+                   1).astype(np.float32)
+    for i in range(4):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [-0.2 * i, 0, 0]
+        uv = np.zeros((st.n_kp, 2), np.float32)
+        pc = pts + T[:3, 3]
+        uv[:60] = pc[:, :2] / pc[:, 2:] * 100.0 + 32.0 + rng.normal(0, 0.3, (60, 2))
+        if i > 1:
+            T[:3, 3] += rng.normal(0, 0.03, 3)        # the GBA's work
+        st.add_keyframe(pose_cw=T, K=K, kp_uv=uv, kp_octave=np.zeros(st.n_kp, np.int32),
+                        kp_angle=np.zeros(st.n_kp, np.float32),
+                        kp_response=np.ones(st.n_kp, np.float32),
+                        kp_valid=np.arange(st.n_kp) < 60,
+                        desc=rng.randint(0, 2**32, (st.n_kp, 8), dtype=np.uint32),
+                        ts=float(i), hw=(64, 64))
+    for j in range(60):
+        m = st.add_map_point(pts[j], st.kf_desc[0, j], ref_kf=0)
+        for k in range(4):
+            st.add_observation(m, k, j)
+    payload = agent.push_payload()
+    poses = {}
+    for dev in (cuda, "cpu"):
+        AgentMediator.registry.clear()
+        mm = MapManager(device=dev)
+        sched = MediatorScheduler(mm, gba_iters=10, background_gba=True)
+        med = AgentMediator(0, vocab, mm, n_kp=st.n_kp, device=dev)
+        sched.register_mediator(med)
+        sched.enqueue_request(0, payload)
+        assert sched.process_pending() == 1
+        thread = sched._gba_threads[0]
+        thread.join(timeout=120)
+        assert not thread.is_alive()
+        with med.store.lock:
+            poses[str(dev)] = med.store.kf_pose_cw[: med.store.n_kf].copy()
+    assert np.abs(poses[str(cuda)][1:] - st.kf_pose_cw[1:4]).max() > 1e-3   # it applied
+    np.testing.assert_array_equal(poses[str(cuda)][0], st.kf_pose_cw[0])      # the anchor
+    np.testing.assert_allclose(poses[str(cuda)], poses["cpu"], atol=1e-3)

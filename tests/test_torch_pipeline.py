@@ -175,9 +175,10 @@ def _env():
 
 def test_port_never_reaches_jax():
     """Guard: with jax, jaxlib, the JAX package, PyYAML and msgpack made
-    unimportable, the port imports (its sync layer, SwarmAgent and bench
-    too), runs a small tracking step on its plain path, tracks three RGB-D
-    frames with its tracker and round-trips its map through the codec."""
+    unimportable, the port imports (its sync layer, SwarmAgent, bench and
+    every server module too), runs a small tracking step on its plain
+    path, tracks three RGB-D frames with its tracker, round-trips its map
+    through the codec and serves it as one push to a scheduler."""
     code = (
         "import sys\n"
         "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack')\n"
@@ -210,6 +211,16 @@ def test_port_never_reaches_jax():
         "assert t.state.name == 'OK' and t.matches_inliers >= 100, t.matches_inliers\n"
         "sl = codec.decode_slice(codec.encode_slice(oplog.full_archive(t.store)))\n"
         "assert len(sl.kfs) == t.store.n_kf and len(sl.mps) == t.store.n_mp > 0\n"
+        "from swarmmap_tpu_torch.ops import ba, matching, pose_graph, sim3, sim3_opt\n"
+        "from swarmmap_tpu_torch.server import (landmark_scoring, loop_closing, map_enhancer,"
+        " map_manager, mediator, scheduler, sim3_match)\n"
+        "mm = map_manager.MapManager(device='cpu')\n"
+        "sch = scheduler.MediatorScheduler(mm, device='cpu')\n"
+        "sch.register_mediator(mediator.AgentMediator(0, voc, mm, n_kp=t.store.n_kp, n_levels=4,"
+        " run_global_ba=True, device='cpu'))\n"
+        "sch.enqueue_request(0, codec.encode_slice(oplog.full_archive(t.store)))\n"
+        "assert sch.process_pending() == 1 and sch.processed == 1\n"
+        "assert mm.stores[0].n_kf == t.store.n_kf and mm.stores[0].n_mp == t.store.n_mp\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in blocked"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -13,6 +13,7 @@ tests/test_torch_pnp.py.
 """
 import numpy as np
 import pytest
+import torch
 
 from swarmmap_tpu.core import frame as jframe, keyframe_db as jkdb
 from swarmmap_tpu.core import map_store as jms, tracking as jtracking
@@ -195,9 +196,9 @@ def test_relocalisation_failure_resets_like_jax(world):
 
 
 def test_unported_paths_raise(world, tmp_path):
-    """Dynamic filtering, stereo and the conjugate-gradient BA wait for
-    later slices and say so; nothing falls back.  The map checkpoints,
-    ported, round-trip an empty map."""
+    """Dynamic filtering and stereo wait for later slices and say so;
+    nothing falls back.  The map checkpoints, ported, round-trip an empty
+    map, and the conjugate-gradient BA, ported, runs."""
     from swarmmap_tpu_torch.core.system import System
     from swarmmap_tpu_torch.ops import ba
 
@@ -222,8 +223,10 @@ def test_unported_paths_raise(world, tmp_path):
     assert s2.load_map(tmp_path / "map.bin") and s2.n_keyframes() == s2.n_map_points() == 0
     prob = ba.build_padded_problem(np.eye(4)[None], np.eye(3)[None], [True], np.ones((1, 3)),
                                    [0], [0], [[0.0, 0.0]], [1.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ba.bundle_adjust(prob, mode="cg")
+    # the conjugate-gradient BA is ported (item 15): a one-camera problem
+    # with its camera fixed leaves the camera and moves nothing to NaN
+    res = ba.bundle_adjust(prob, mode="cg")
+    assert torch.equal(res.Tcw, prob.Tcw) and torch.isfinite(res.pts).all()
     # monocular initialisation is ported: a first monocular frame waits for
     # a second one
     assert s.track_monocular(img, 0.0) is None
