@@ -31,6 +31,14 @@ JAX package's `Swarm.sync` does, records every request it is given
 (`events`) and can `replay` them into another server; `FrameClock` makes
 the map stores' clock the frame's timestamp; `log_requests` and
 `replica_gaps` are the parity bars of two servers.
+
+The `swarm` cell is the production main path: a port `swarm.Swarm` of 3
+agents on `server_swarm`'s sequences (60 frames, 350 landmarks) at the
+same geometry and ORB settings, with the server cells' cadence (a state
+report every 5 frames, a push every 10) and global BA on (`run_swarm`).  `SwarmRun` drives a Swarm of either package frame by
+frame under a `FrameClock` and keeps, per frame, each agent's path
+(cohort, staged or none), state, pose and keyframes, and every Kth
+cohort dispatch's stacked inputs and outputs.
 """
 from __future__ import annotations
 
@@ -400,7 +408,9 @@ class Server:
     package's `Swarm.__init__` wires them (swarm.py:142-166): one
     MapManager, one MediatorScheduler whose distributes queue up for
     their agent, one AgentMediator per agent.  It is the harness of the
-    server's tests and chip phase, not a port of `Swarm` (item 12).
+    server's tests and chip phase, where each agent tracks alone
+    (`SwarmAgent.track`); `swarm.Swarm` is the port of the JAX package's
+    `Swarm`, with its fused cohort.
 
     Everything the server is given goes into `events` (state reports and
     pushes with their bytes, serve rounds, the finish, each with the
@@ -619,3 +629,227 @@ def serve_sequences(server: Server, seqs: list, n: int | None = None, **cadence)
             if T is not None:
                 poses[a][i] = T
     return poses
+
+
+# the swarm cell: a port Swarm on the server_swarm sequences
+SWARM_RECORD_EVERY = 8    # every 8th cohort dispatch's inputs and outputs are kept
+
+
+class SwarmStep(NamedTuple):
+    """One `Swarm.step`, as `SwarmRun` records it (per agent where a list)."""
+    paths: list               # "cohort" (in this step's fused dispatch), "staged", "none"
+    states: list              # the tracker's state after the step
+    poses: list               # last_frame.pose_cw after the step (None where lost)
+    keyframes: list           # whether the tracker inserted a keyframe in this step
+    n_kf: list                # keyframe slots of the agent's map after the step
+    distributes: list         # server distributes the agent received in the step
+    dispatches: int           # the swarm's fused_cohort_dispatches after the step
+    sync: bool                # the step ended in a sync (push_every)
+    merged: bool              # a group holds more than one map after the step
+    ms: float                 # host clock around step
+
+
+class SwarmRun:
+    """Drives a Swarm of either package (only its public attributes and the
+    JAX package's method names are used) one step at a time, with `clock`
+    (a `FrameClock`, where given) set to the frame's timestamp, and
+    records a `SwarmStep` per step in `steps`.  Every `record_every`-th
+    cohort dispatch of a port Swarm (none with 0) is kept in `dispatches`:
+    its stacked inputs and keyword arguments, its outputs, its agents in
+    row order, their last poses at dispatch time and the `chain` it was
+    given (the double buffer's pending dispatch, or None).
+    `dispatch_launches` counts the pose_lm launches made inside cohort
+    dispatches, `n_dispatches` the dispatches."""
+
+    def __init__(self, swarm, clock: FrameClock | None = None, record_every: int = 0):
+        self.swarm, self.clock, self.record_every = swarm, clock, record_every
+        self.steps: list[SwarmStep] = []
+        self.dispatches: list[dict] = []
+        self._cohort: set = set()
+        self._staged: set = set()
+        self._received: list = []
+        self.n_dispatches = self.dispatch_launches = 0
+        inner = swarm._dispatch_fused
+
+        def dispatch(live, fused, ts, chain=None):
+            launches = _launches()
+            try:
+                return kept(live, fused, ts, chain)
+            finally:
+                self.dispatch_launches += _launches() - launches
+
+        def kept(live, fused, ts, chain):
+            agents = [live[i][0] for i, _, _ in fused]
+            self._cohort |= {id(a) for a in agents}
+            keep = self.record_every and self.n_dispatches % self.record_every == 0
+            self.n_dispatches += 1
+            if not keep:
+                return inner(live, fused, ts, chain=chain)
+            from . import pipeline
+
+            step = pipeline.batched_tracking_step
+            prev = [None if a.system.tracking.last_frame is None
+                    else a.system.tracking.last_frame.pose_cw for a in agents]
+
+            def recorded(inp, **kw):
+                out = step(inp, **kw)
+                self.dispatches.append({"inputs": inp, "kw": kw, "out": out, "agents": agents,
+                                        "prev": prev, "chain": chain})
+                return out
+
+            pipeline.batched_tracking_step = recorded
+            try:
+                return inner(live, fused, ts, chain=chain)
+            finally:
+                pipeline.batched_tracking_step = step
+
+        swarm._dispatch_fused = dispatch
+        for agent in swarm.agents:
+            def track(image, ts, features=None, agent=agent, inner=agent.track):
+                self._staged.add(id(agent))
+                return inner(image, ts, features=features)
+
+            def receive(payload, agent=agent, inner=agent.receive_distribute):
+                self._received.append(id(agent))
+                return inner(payload)
+
+            agent.track, agent.receive_distribute = track, receive
+
+    def step(self, images, ts: float) -> SwarmStep:
+        sw = self.swarm
+        if self.clock is not None:
+            self.clock.t = float(ts)
+        self._cohort, self._staged, self._received = set(), set(), []
+        t0 = time.perf_counter()
+        sw.step(images, ts)
+        ms = (time.perf_counter() - t0) * 1e3
+        trackers = [a.system.tracking for a in sw.agents]
+        rec = SwarmStep(
+            paths=["cohort" if id(a) in self._cohort else "staged" if id(a) in self._staged
+                   else "none" for a in sw.agents],
+            states=[tr.state.name for tr in trackers],
+            poses=[None if tr.last_frame is None or tr.last_frame.pose_cw is None
+                   else np.array(tr.last_frame.pose_cw) for tr in trackers],
+            keyframes=[tr.last_frame is not None and tr.last_frame.frame_id == tr.last_kf_frame_id
+                       for tr in trackers],
+            n_kf=[int(a.system.store.n_kf) for a in sw.agents],
+            distributes=[self._received.count(id(a)) for a in sw.agents],
+            dispatches=sw.fused_cohort_dispatches,
+            sync=sw.frame_count % sw.config.push_every == 0,
+            merged=max(len(g) for g in sw.merged_groups()) > 1,
+            ms=ms)
+        self.steps.append(rec)
+        return rec
+
+
+def swarm_disagreements(a: list[SwarmStep], b: list[SwarmStep],
+                        tcw_tol: float = 1e-3) -> tuple[list[str], float]:
+    """Where two runs of one swarm sequence part, step by step: each
+    agent's path and state must agree in every step, its pose within
+    tcw_tol in the steps before either run's first merge (a merge's Sim3
+    and rebase carry the runs' float32 differences into every pose) and
+    while the agent's keyframes are the same in both (a keyframe that one
+    run inserts and the other does not gives the two maps other local BA
+    windows).  Returns (the disagreements, the largest |dTcw| compared)."""
+    out, worst = [], 0.0
+    merged, parted = False, set()
+    for i, (x, y) in enumerate(zip(a, b)):
+        if (x.paths, x.states) != (y.paths, y.states):
+            out.append(f"frame {i}: paths/states {x.paths} {x.states} vs {y.paths} {y.states}")
+        merged = merged or x.merged or y.merged
+        parted |= {j for j, (m, n) in enumerate(zip(x.n_kf, y.n_kf)) if m != n}
+        for j, (p, q) in enumerate(zip(x.poses, y.poses)):
+            if (p is None) != (q is None):
+                out.append(f"frame {i}: a pose in one run only")
+            elif p is not None and not merged and j not in parted:
+                d = float(np.abs(p - q).max())
+                worst = max(worst, d)
+                if not d < tcw_tol:
+                    out.append(f"frame {i}: |dTcw| {d:.3g}")
+    return out, worst
+
+
+def cohort_row_disagreements(dispatches: list[dict], tcw_tol: float = 1e-5) -> list[str]:
+    """Each kept cohort dispatch (`SwarmRun.dispatches`) re-run row by row
+    through `pipeline.tracking_step` on the same tensors: match_mp and
+    n_inliers must be equal, Tcw within tcw_tol.  Empty when every row is
+    the per-agent step."""
+    from . import pipeline
+
+    out = []
+    for n, d in enumerate(dispatches):
+        for j in range(len(d["agents"])):
+            one = pipeline.tracking_step(pipeline.TrackInputs(*(x[j] for x in d["inputs"])),
+                                         **d["kw"])
+            err = float((one.Tcw - d["out"].Tcw[j]).abs().max())
+            if (not torch.equal(one.match_mp, d["out"].match_mp[j])
+                    or int(one.n_inliers) != int(d["out"].n_inliers[j]) or not err < tcw_tol):
+                out.append(f"dispatch {n} row {j}: |dTcw| {err:.3g}, n_inliers "
+                           f"{int(one.n_inliers)} vs {int(d['out'].n_inliers[j])}")
+    return out
+
+
+def swarm_ate(swarm, seqs) -> list[tuple[float, float]]:
+    """Per agent, (ATE RMSE of its tracked trajectory against the ground
+    truth of its sequence, the ground truth's span): tests/test_swarm.py's
+    double-buffer bar."""
+    from .utils.trajectory import ate_rmse
+
+    out = []
+    for agent, seq in zip(swarm.agents, seqs):
+        ts_to_idx = {float(t): i for i, t in enumerate(seq.timestamps)}
+        tr = agent.system.tracking.trajectory
+        idx = [ts_to_idx[float(t)] for t, _ in tr if float(t) in ts_to_idx]
+        est = np.stack([T[:3, 3] for _, T in tr])
+        gt = seq.world.poses_wc[idx][:, :3, 3]
+        out.append((float(ate_rmse(est, gt)), float(np.linalg.norm(gt.max(0) - gt.min(0)))))
+    return out
+
+
+def run_swarm(device, double_buffer: bool = False, n_frames: int | None = None,
+              draws: dict | None = None, hw: tuple[int, int] = HW,
+              n_points: int | None = None, n_features: int = N_FEATURES,
+              n_levels: int = N_LEVELS, record_every: int = SWARM_RECORD_EVERY,
+              profile_frame: int | None = None) -> SwarmRun:
+    """The `swarm` cell on `device`: `server_swarm`'s sequences (its first
+    n_frames, all by default; rendered before the run), a `swarm.Swarm` of
+    3 agents with the server cells' cadence (a state report every
+    SERVER_REPORT_EVERY frames, a push every SERVER_PUSH_EVERY) and global
+    BA on, driven by a `SwarmRun` under a `FrameClock`, then `finish`.
+    The steps' two-view and Sim3 RANSAC draws are kept in `run.draws`
+    ({"twoview": [...], "sim3": [...]}); the kinds given in `draws`
+    (another run's) are replayed instead (`finish` draws from the
+    generators).
+    The step of frame `profile_frame`, where given, runs under
+    torch.profiler (`profile_server.profiled`; its summary in
+    `run.profile`).  The run also carries `seqs`."""
+    from .swarm import Swarm, SwarmConfig
+
+    seqs = server_sequences("server_swarm", hw=hw, n_points=n_points)
+    n = len(seqs[0]) if n_frames is None else n_frames
+    frames = [[s.read(i) for s in seqs] for i in range(n)]
+    settings = settings_for(seqs[0].world, n_features, n_levels)
+    kept = {"twoview": [], "sim3": []}
+    with FrameClock() as clock:
+        swarm = Swarm(len(seqs), settings, device=device, config=SwarmConfig(
+            push_every=SERVER_PUSH_EVERY, report_every=SERVER_REPORT_EVERY,
+            double_buffer=double_buffer))
+        run = SwarmRun(swarm, clock, record_every)
+        run.profile = None
+        with contextlib.ExitStack() as stack:
+            for kind in kept:
+                if draws is not None and kind in draws:
+                    stack.enter_context(replayed_draws(list(draws[kind]), kind))
+                else:
+                    kept[kind] = stack.enter_context(recorded_draws(kind))
+            for i in range(n):
+                ts = float(seqs[0].timestamps[i])
+                if i == profile_frame:
+                    from .profile_server import profiled
+
+                    run.profile = {"frame": i, **profiled(lambda: run.step(frames[i], ts))[0]}
+                else:
+                    run.step(frames[i], ts)
+        swarm.finish()
+    run.draws, run.seqs = kept, seqs
+    return run

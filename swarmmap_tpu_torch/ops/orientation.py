@@ -32,6 +32,15 @@ def _patch_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return dx.astype(np.float32), dy.astype(np.float32), mask.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _segment_ends(w: int, us: tuple[int, ...], device: torch.device):
+    """[n_u, w] indices into the padded running sums of the right end of
+    each half-width-u row segment and of the column before its left end."""
+    x = np.arange(w)[None, :] + HALF_PATCH + 1
+    u = np.asarray(us)[:, None]
+    return (torch.from_numpy(x + u).to(device), torch.from_numpy(x - u - 1).to(device))
+
+
 def moment_maps(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-image intensity moments m10/m01 over the circular patch.
 
@@ -43,24 +52,27 @@ def moment_maps(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
     Levels are integral, so the running sums are exact in fp32 while they
     stay below 2^24 (true at widths of a few hundred pixels); at 752 the
-    x*img sums reach ~7.5e7 and round in the scan's order."""
+    x*img sums reach ~7.5e7.  The port keeps them in float64, where they
+    are exact at any width, so the moments do not depend on the scan's
+    order (the batch size, the device); each row's box and ramp sum is an
+    integer below 2^24 and goes back to float32 exactly.  (The JAX
+    package scans in float32: at 752 its moments round.)"""
     h, w = img.shape[-2:]
     r = HALF_PATCH
     umax = _umax()
-    imgp = F.pad(img, (r + 1, r, r, r))
-    colx = torch.arange(-(r + 1), w + r, dtype=img.dtype, device=img.device)
+    us = sorted(set(umax.tolist()))
+    imgp = F.pad(img, (r + 1, r, r, r)).to(torch.float64)
+    colx = torch.arange(-(r + 1), w + r, dtype=torch.float64, device=img.device)
     cs = torch.cumsum(imgp, dim=-1)
     csx = torch.cumsum(imgp * colx, dim=-1)
-    x0 = r + 1  # column offset of image x=0 inside the padded arrays
-    xs = torch.arange(w, dtype=img.dtype, device=img.device)
-    boxes: dict[int, torch.Tensor] = {}
-    ramps: dict[int, torch.Tensor] = {}
-    for u in sorted(set(umax.tolist())):
-        hi = x0 + u
-        lo = x0 - u - 1
-        box = cs[..., hi:hi + w] - cs[..., lo:lo + w]
-        ramps[u] = (csx[..., hi:hi + w] - csx[..., lo:lo + w]) - xs * box
-        boxes[u] = box
+    # every half-width u at once: [n_u, w] columns of each row segment's ends
+    hi, lo = _segment_ends(w, tuple(us), img.device)
+    box = cs[..., hi] - cs[..., lo]                          # [..., H+2r, n_u, w]
+    xs = torch.arange(w, dtype=torch.float64, device=img.device)
+    ramp = ((csx[..., hi] - csx[..., lo]) - xs * box).to(img.dtype)
+    box = box.to(img.dtype)
+    boxes = {u: box[..., i, :] for i, u in enumerate(us)}
+    ramps = {u: ramp[..., i, :] for i, u in enumerate(us)}
     m10 = ramps[int(umax[0])][..., r:r + h, :]
     m01 = torch.zeros_like(img)
     for k in range(1, r + 1):

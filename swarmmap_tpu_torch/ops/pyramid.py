@@ -9,6 +9,9 @@ Levels are rounded to integral intensities at every step.  That rounding
 is not bit-reproducible across frameworks: where `Wr @ img @ Wc.T` lands
 within an ulp of .5, PyTorch and XLA may round to neighbouring integers,
 so about 1e-4 of the pixels of a level differ by 1 from the JAX package.
+For the same reason each image of a batch is resized by its own matmuls:
+the GEMM kernel that a batch of A images would get sums in another order
+than one image's, and a cohort row would part from the per-agent step.
 """
 from __future__ import annotations
 
@@ -77,12 +80,16 @@ def _resize_weights_on(n_in: int, n_out: int, device: torch.device) -> torch.Ten
 
 
 def resize_bilinear(img: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    """Separable bilinear resize of [..., h1, w1] as two fp32 matmuls."""
+    """Separable bilinear resize of [..., h1, w1] as two fp32 matmuls per
+    image, whatever the leading dims, so an image's level has the same
+    bits alone and in a batch."""
     h2, w2 = shape
     h1, w1 = img.shape[-2:]
     Wr = _resize_weights_on(h1, h2, img.device)
     Wc = _resize_weights_on(w1, w2, img.device)
-    return torch.matmul(torch.matmul(Wr, img), Wc.T)
+    flat = img.reshape((-1, h1, w1))
+    out = torch.stack([torch.matmul(torch.matmul(Wr, x), Wc.T) for x in flat.unbind(0)])
+    return out.reshape(img.shape[:-2] + (h2, w2))
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int, scale: float) -> list[torch.Tensor]:

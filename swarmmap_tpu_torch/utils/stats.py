@@ -2,8 +2,9 @@
 
 Port of swarmmap_tpu/utils/stats.py with the same counter names
 (`rpc_fetch`, `rpc_h2d`, `fetch_wall`, `fetch_wall_main`), so a bench that
-reads `STATS.summary()` means the same thing on either package.  The
-JAX-only RPC-floor probe is not carried over.
+reads `STATS.summary()` means the same thing on either package, and of
+`measure_rpc_floor`, the round-trip probe behind the bench's
+`swarm_rpc_floor_ms`.
 """
 from __future__ import annotations
 
@@ -62,3 +63,37 @@ class StageStats:
 
 
 STATS = StageStats()
+
+
+def measure_rpc_floor(n: int = 12, device=None) -> dict:
+    """Measured per-round-trip device cost on this host: a tiny upload +
+    fetch pair, and a trivial one-op dispatch + fetch (after one warm-up),
+    each averaged over n (unrounded, as the port's bench
+    reports).  `device` defaults to the card
+    (`utils.device.default_device`).  Used by the bench to publish the
+    round-trip floor."""
+    import numpy as np
+    import torch
+
+    from .device import default_device
+
+    dev = default_device() if device is None else torch.device(device)
+    tiny = np.zeros(8, np.float32)
+
+    def f(x):
+        return x + 1.0
+
+    _ = f(torch.from_numpy(tiny).to(dev)).cpu().numpy()  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.from_numpy(tiny).to(dev).cpu().numpy()
+    put_get = (time.perf_counter() - t0) / n
+    x = torch.from_numpy(tiny).to(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        f(x).cpu().numpy()
+    dispatch_fetch = (time.perf_counter() - t0) / n
+    return {
+        "rpc_put_get_ms": 1e3 * put_get,
+        "rpc_dispatch_fetch_ms": 1e3 * dispatch_fetch,
+    }

@@ -4,7 +4,10 @@ plain PyTorch version, the batched tracking step and the per-agent tracker
 on the card against the same on the CPU, RANSAC PnP with its refinement
 through the kernel, a map saved, loaded and relocalised against, and the
 server's device programs (the CG bundle adjustment and the pose graph,
-bit-equal across card runs) and one server request, card against CPU.
+bit-equal across card runs) and one server request, card against CPU;
+`utils.device.fetch` / `fetch_async` waiting on their own copies only;
+and the in-process swarm (`swarm.Swarm`) on the card against the CPU,
+with one cohort dispatch's pose stage against the plain version.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -455,3 +458,87 @@ def test_background_gba_on_gpu(cuda):
     assert np.abs(poses[str(cuda)][1:] - st.kf_pose_cw[1:4]).max() > 1e-3   # it applied
     np.testing.assert_array_equal(poses[str(cuda)][0], st.kf_pose_cw[0])      # the anchor
     np.testing.assert_allclose(poses[str(cuda)], poses["cpu"], atol=1e-3)
+
+
+SLEEP_CYCLES = 200_000_000   # torch.cuda._sleep: 0.1 s and more at the H100's clocks
+
+
+def test_fetch_waits_for_its_own_copies_only(cuda):
+    """A fetch returns while unrelated work on another stream still runs
+    (a device-wide synchronize would wait for it)."""
+    from swarmmap_tpu_torch.utils.device import fetch
+
+    a = torch.arange(1000, device=cuda, dtype=torch.float32) * 2
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        slept = torch.cuda.Event()
+        slept.record()
+    host = fetch(a)
+    assert not slept.query(), "fetch waited for the other stream's work"
+    np.testing.assert_array_equal(host, np.arange(1000, dtype=np.float32) * 2)
+    torch.cuda.synchronize()
+
+
+def test_fetch_async_result_ahead_of_later_work(cuda):
+    """The double buffer's case: a fetch_async handle taken of A gives A's
+    values while B, enqueued after it on the same stream, still runs."""
+    from swarmmap_tpu_torch.utils.device import fetch_async
+
+    a = torch.arange(1000, device=cuda, dtype=torch.int32) + 7
+    handle = fetch_async(a, {"twice": a * 2})
+    torch.cuda._sleep(SLEEP_CYCLES)
+    b = a * 3
+    done_b = torch.cuda.Event()
+    done_b.record()
+    host, extra = handle.result()
+    assert not done_b.query(), "result() waited for work enqueued after the copies"
+    np.testing.assert_array_equal(host, np.arange(1000, dtype=np.int32) + 7)
+    np.testing.assert_array_equal(extra["twice"], 2 * (np.arange(1000, dtype=np.int32) + 7))
+    assert handle.result()[0] is host
+    torch.cuda.synchronize()
+    assert int(b[0]) == 21
+
+
+SWARM_KW = dict(n_frames=12, hw=(240, 320), n_points=350, n_features=400, n_levels=4,
+                record_every=4)
+
+
+@pytest.fixture(scope="module")
+def swarm_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the pose kernel is CUDA C++ for sm_90a)")
+    from swarmmap_tpu_torch import cells
+
+    return cells.run_swarm(torch.device("cuda", 0), **SWARM_KW)
+
+
+def test_swarm_on_gpu_matches_cpu(swarm_on_card):
+    """A 3-agent Swarm for 12 frames at 240x320 on the card, and the same
+    run on the CPU with the card's two-view draws: the same path and
+    state per frame and agent, poses within 2e-3 until the first merge
+    and while an agent's keyframes are the same in both runs
+    (`cells.swarm_disagreements`), every cohort dispatch one launch.
+    2e-3, not the tracker's 1e-3: the initial BA's first step is
+    ill-conditioned (each device lands ~1e-3 of the step from the float64
+    solve, ROADMAP queue 3), and agent 1's initial map parts by 1.4e-3
+    here."""
+    from swarmmap_tpu_torch import cells
+
+    card = swarm_on_card
+    cpu = cells.run_swarm("cpu", draws={"twoview": card.draws["twoview"]}, **SWARM_KW)
+    assert cells.swarm_disagreements(card.steps, cpu.steps, 2e-3)[0] == []
+    assert any(all(p == "cohort" for p in st.paths) for st in card.steps)
+    assert card.dispatch_launches == card.n_dispatches > 0
+
+
+def test_swarm_cohort_pose_kernel_matches_plain(swarm_on_card):
+    """One cohort dispatch's pose stage (A = 3 agents in one pose_lm
+    launch) against pose_optimize(step_tol=0) on the same problem."""
+    d = swarm_on_card.dispatches[-1]
+    prob = pipeline.match_frame(d["inputs"], **d["kw"])[3]
+    assert prob.Tcw0.shape[0] == 3
+    rk = pose_opt.pose_optimize_auto(*prob, rounds=2, iters=8)
+    rp = pose_opt.pose_optimize(*prob, rounds=2, iters=8, step_tol=0.0)
+    assert float((rk.Tcw - rp.Tcw).abs().max()) < 1e-3
+    assert float((rk.inliers == rp.inliers).float().mean()) > 0.99

@@ -20,7 +20,7 @@ import torch
 
 from swarmmap_tpu import pipeline as jpipe
 from swarmmap_tpu.utils import datasets as jdata
-from swarmmap_tpu_torch import convert, pipeline
+from swarmmap_tpu_torch import convert, pipeline, swarm
 from swarmmap_tpu_torch.core import frame, keyframe_db, map_store, tracking
 from swarmmap_tpu_torch.ops import vocab
 from swarmmap_tpu_torch.utils import config, datasets, device
@@ -154,8 +154,9 @@ def test_synthetic_world_identical(motion, dist):
                               vocab.default_vocabulary()),
     lambda: frame.build_frame(np.zeros(HW, np.uint8), 0.0, config.Settings.default().camera,
                               config.OrbConfig(n_features=256, n_levels=3)),
+    lambda: swarm.Swarm(2, config.Settings.default()),
 ], ids=["realistic_track_inputs", "example_track_inputs", "to_tensor",
-        "track_inputs_from_numpy", "Tracking", "build_frame"])
+        "track_inputs_from_numpy", "Tracking", "build_frame", "Swarm"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device named, an entry point asks for the card and raises
     where there is none: no silent fallback to the CPU."""
@@ -175,10 +176,11 @@ def _env():
 
 def test_port_never_reaches_jax():
     """Guard: with jax, jaxlib, the JAX package, PyYAML and msgpack made
-    unimportable, the port imports (its sync layer, SwarmAgent, bench and
-    every server module too), runs a small tracking step on its plain
-    path, tracks three RGB-D frames with its tracker, round-trips its map
-    through the codec and serves it as one push to a scheduler."""
+    unimportable, the port imports (its sync layer, SwarmAgent, Swarm,
+    bench and every server module too), runs a small tracking step on its
+    plain path, tracks three RGB-D frames with its tracker, round-trips
+    its map through the codec, serves it as one push to a scheduler and
+    builds and finishes a 2-agent Swarm."""
     code = (
         "import sys\n"
         "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack')\n"
@@ -221,6 +223,9 @@ def test_port_never_reaches_jax():
         "sch.enqueue_request(0, codec.encode_slice(oplog.full_archive(t.store)))\n"
         "assert sch.process_pending() == 1 and sch.processed == 1\n"
         "assert mm.stores[0].n_kf == t.store.n_kf and mm.stores[0].n_mp == t.store.n_mp\n"
+        "sw = swarm.Swarm(2, s, config=swarm.SwarmConfig(), device='cpu')\n"
+        "sw.finish()\n"
+        "assert len(sw.agents) == len(sw.mediators) == 2 and sw.mesh is None\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in blocked"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
