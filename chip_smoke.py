@@ -17,7 +17,10 @@ one it exits non-zero before doing anything.  The paths:
   frame), and a relocalisation (RANSAC PnP with its 3x8 refinement, then
   4x10), each against ground truth and its first frames against the same
   tracker on the CPU; every pose_lm launch of these paths is held against
-  the plain version on the tensors it was given;
+  the plain version on the tensors it was given (|dTcw| < 1e-3; a launch
+  whose last LM round had fewer than 3 points, which leave the pose free,
+  to the same inliers and summed chi2, and listed apart in the kernels
+  line);
 - the monocular client (`core/system.py`, `System.track_monocular`) on
   synthesize_sequence(seed=0, motion="arc") at the same geometry with
   1500 landmarks, 40 frames: two-view initialisation, the dense initial BA,
@@ -40,6 +43,24 @@ one it exits non-zero before doing anything.  The paths:
   uninterrupted run did, and the map saved in both formats, loaded into a
   fresh client and relocalised against (2 of frames 10, 20, 30); wire
   bytes and encode / decode / apply / save / load times;
+- the stereo sensor path (`System.track_stereo`: the right and left
+  extractions, `ops/stereo.py`'s depths, one fetch, then the staged
+  tracker with the depths, two 4x10 pose_lm launches a frame) on the
+  tracker's world, 40 rectified pairs at a 0.12 m baseline: the left
+  image's two extractions (track_stereo's and build_frame's) bit-equal on
+  every frame, frame 0's depths within 8% (median) of the rendered depth,
+  70% of frames tracked and 100 map points, the metric-scale error, the
+  first 25 frames against the CPU (past frame 22, where the one
+  keyframe's map falls under 30 inliers: the same frames on both), with
+  per-stage times;
+- dynamic-object filtering (`core/dynamic.py`, the shipped segmenter as
+  three convolutions on the card) on synthesize_sequence(seed=5,
+  n_dynamic=60) at the same geometry with 1500 landmarks, 40 frames, the
+  segmenter on every keyframe and the filter off: 35 frames tracked in
+  both, points flagged, both ATEs, every segmented image again through
+  the segmenter on the CPU (no vote may flip), its ms on the card and the
+  numpy im2col's on the host, and the first 8 frames against the CPU on
+  the card's two-view draws (paths, states, votes);
 - the edge server (`server/`, the `MediatorScheduler` with its mediators,
   loop closing, map merge and CG global BA) answering port SwarmAgents
   (`cells.Server`): `server_swarm`, 3 agents on one landmark field (60
@@ -101,6 +122,15 @@ N_STEPS = 5
 TCW_TOL = 1e-3
 AGREE_MIN = {(2, 8): 0.99, (3, 8): 0.98, (4, 10): 0.98}
 MIN_INLIERS = 30
+# a pose call whose last LM round ran on too few points to fix the pose
+# (`bench_pose.against_plain`'s `undetermined`) is held instead to the
+# plain version's inliers exactly and to its chi2 summed over the valid
+# points, within CHI2_RTOL of it plus CHI2_ATOL (chi2 is in units of the
+# keypoint's sigma squared; the gate is 5.991 a point)
+CHI2_RTOL = 1e-3
+CHI2_ATOL = 1.0
+# per tracker path, its undetermined pose calls (for the kernels line)
+UNDETERMINED: dict[str, dict] = {}
 # the tracker phases
 RGBD_FRAMES = 40
 MONO_FRAMES = 20
@@ -355,18 +385,36 @@ def _path_summary(name: str, records, launches: int) -> dict:
 def _hold_to_plain(name: str, calls) -> float:
     """The pose_lm launches that `record_pose_calls` kept on one tracker
     path against the plain pose_optimize(step_tol=0) on the same card
-    tensors, per schedule; returns the largest |dTcw|."""
+    tensors, per schedule: |dTcw| < TCW_TOL and the inlier agreement bar;
+    an agent whose last LM round ran on fewer than 3 points (no unique
+    pose) is held to the same inliers and the same summed chi2 (CHI2_RTOL,
+    CHI2_ATOL) instead, and listed in UNDETERMINED.  Returns the largest
+    |dTcw| of all the calls."""
     from swarmmap_tpu_torch.bench_pose import against_plain
 
-    rows = against_plain(calls)
+    rows = against_plain(calls, TCW_TOL)
+    free = [u for r in rows for u in r["undetermined"]]
     for sched in sorted({r["schedule"] for r in rows}):
         rs = [r for r in rows if r["schedule"] == sched]
-        err, agree = max(r["err"] for r in rs), min(r["agree"] for r in rs)
+        err = max(r["err_determined"] for r in rs)
+        agree = min(r["agree"] for r in rs)
+        us = [u for r in rs for u in r["undetermined"]]
         log(f"  tracker {name}: kernel vs plain on its {len(rs)} calls at "
             f"{sched[0]}x{sched[1]}, N {sorted({r['n'] for r in rs})}: max|dTcw| "
-            f"{err:.3g}, least inlier agreement {agree:.4f}")
-        if not err < TCW_TOL or not agree > AGREE_MIN[sched]:
-            fail(f"tracker {name}: pose kernel disagrees with plain at {sched}")
+            f"{err:.3g}, least inlier agreement {agree:.4f}" + (
+                f"; {len(us)} with no unique pose (last round on "
+                f"{sorted({u['last_round_points'] for u in us})} points): max|dTcw| "
+                f"{max(u['err'] for u in us):.3g}, the same inliers in "
+                f"{sum(u['same_inliers'] for u in us)}, chi2 kernel / plain "
+                f"{[(round(u['chi2_kernel'], 4), round(u['chi2_plain'], 4)) for u in us]}"
+                if us else ""))
+        bad = [u for u in us if not u["same_inliers"] or not abs(
+            u["chi2_kernel"] - u["chi2_plain"]) <= CHI2_RTOL * u["chi2_plain"] + CHI2_ATOL]
+        if not err < TCW_TOL or not agree > AGREE_MIN[sched] or bad:
+            fail(f"tracker {name}: pose kernel disagrees with plain at {sched}: {bad}")
+    if free:
+        UNDETERMINED[name] = {"calls": len(free), "max_abs_err": max(u["err"] for u in free),
+                              "max_abs_err_determined": max(r["err_determined"] for r in rows)}
     return max(r["err"] for r in rows)
 
 
@@ -920,6 +968,356 @@ def phase_sync(dev: torch.device, mono_states: list[str]) -> dict:
     return {"frames": len(seq), "launches": launches, "launches_per_frame": launches / len(seq),
             "pushes": pushes, "state_bytes": states, "checkpoints": saves,
             "max_abs_err": _hold_to_plain("sync", calls)}
+
+
+# the card's frames replayed on the CPU: through frame 24, past frame 22,
+# where the one keyframe's map falls under MIN_INLIERS inliers on both
+# devices, so a card that lost stereo tracking earlier disagrees there
+STEREO_CPU_FRAMES = 25
+STEREO_BARS = {"tracked": 0.7, "points": 100, "depth_rel_err": 0.08}  # tests/test_rgbd_stereo.py
+STEREO_STAGES = ("stereo_extract", "stereo_depths", "stereo_fetch", "stereo_grab")
+
+
+@contextlib.contextmanager
+def _recorded_extractions():
+    """Within the block, the features of every `extract_orb` call (the
+    right and left extractions of `System.track_stereo` and
+    `build_frame`'s, all through the extractor module) are kept on their
+    device, in call order."""
+    from swarmmap_tpu_torch.ops import extractor
+
+    inner, kept = extractor.extract_orb, []
+
+    def recorded(*args, **kw):
+        feats = inner(*args, **kw)
+        kept.append(feats)
+        return feats
+
+    extractor.extract_orb = recorded
+    try:
+        yield kept
+    finally:
+        extractor.extract_orb = inner
+
+
+def _tracker_path(rec) -> str:
+    """The tracker path a frame's record took: "fused", "staged" or "none"."""
+    if "pose_opt_frame" in rec.counts:
+        return "staged"
+    return "fused" if rec.counts.get("fused_step") else "none"
+
+
+def phase_stereo(dev: torch.device) -> dict:
+    """The stereo sensor path (`System.track_stereo`: two extractions,
+    `stereo_depths`, one fetch, `grab` with the per-keypoint depths) on the
+    `stereo` cell: the tracker's world, 40 rectified pairs, baseline 0.12 m,
+    with the counts set to 0 just before and read just after and every
+    pose_lm launch held to the plain version.  The left image's two
+    extractions of every frame (track_stereo's and build_frame's, whose
+    indices `kp_depth` shares) must be bit-equal; frame 0's depths within
+    test_rgbd_stereo.py's bar of the rendered depth; 70% of the frames
+    tracked (the grace window's frames among them) and more than 100 map
+    points; the metric-scale error reported; then the first
+    STEREO_CPU_FRAMES frames again on the CPU, with the same frames under
+    MIN_INLIERS inliers."""
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.cells import (STEREO_BASELINE, STEREO_FRAMES, compare_records,
+                                          new_system, stereo_pairs, track_stereo, tracker_world)
+    from swarmmap_tpu_torch.ops import stereo
+    from swarmmap_tpu_torch.utils import datasets
+    from swarmmap_tpu_torch.utils.stats import STATS
+
+    t0 = time.perf_counter()
+    world = tracker_world()
+    pairs = stereo_pairs(world, STEREO_FRAMES)
+    log(f"stereo cell: {world.points.shape[0]} landmarks, {world.hw}, {len(pairs)} pairs, "
+        f"baseline {STEREO_BASELINE} m ({time.perf_counter() - t0:.1f}s)")
+    system = new_system(world, dev)
+    _reset_counts()
+    with record_pose_calls() as calls, _recorded_extractions() as feats:
+        recs = track_stereo(system, pairs)
+    launches, counts = _read_counts()
+    stage_ms = {k: [1e3 * x for x in STATS.times.get(k, [])] for k in STEREO_STAGES}
+    failed = []
+    if len(feats) != 3 * len(pairs):
+        failed.append(f"{len(feats)} extractions in {len(pairs)} frames, not 3 a frame")
+    fields = ("xy", "desc", "octave", "valid")
+    apart = [i for i in range(len(feats) // 3)
+             if not all(torch.equal(getattr(feats[3 * i + 1], f), getattr(feats[3 * i + 2], f))
+                        for f in fields)]
+    log(f"stereo left extractions (track_stereo's, build_frame's) bit-equal in "
+        f"{len(feats) // 3 - len(apart)} of {len(feats) // 3} frames; apart: {apart}")
+    if apart:
+        failed.append(f"the left image's two extractions differ in frames {apart}")
+
+    # frame 0's depths against the rendered depth (test_rgbd_stereo.py's measure)
+    fR, fL = feats[0], feats[1]
+    d = stereo.stereo_depths(fL.xy, fL.desc, fL.octave, fL.valid, fR.xy, fR.desc, fR.octave,
+                             fR.valid, fx=float(world.K[0, 0]), baseline=STEREO_BASELINE)
+    d, xy = d.cpu().numpy(), fL.xy.cpu().numpy()
+    _, depth_gt = datasets.render_frame(world, 0, return_depth=True)
+    errs = []
+    for k in np.flatnonzero(d > 0):
+        gt = depth_gt[int(round(xy[k, 1])), int(round(xy[k, 0]))]
+        if np.isfinite(gt):
+            errs.append(abs(d[k] - gt) / gt)
+    depth_err = float(np.median(errs)) if errs else float("inf")
+
+    tracked = sum(r.state == "OK" for r in recs)
+    # frames under the local map's inlier bar: the tracker holds them in its
+    # RECENTLY_LOST grace window (the motion model, a reacquisition try);
+    # their state stays OK, so `tracked` counts them
+    thin = [i for i, r in enumerate(recs[1:], 1) if r.inliers < MIN_INLIERS]
+    T0, G0 = np.linalg.inv(recs[0].pose_cw), world.poses_wc[0]
+    trans = [float(np.linalg.norm((np.linalg.inv(T0) @ np.linalg.inv(r.pose_cw))[:3, 3]
+                                  - (np.linalg.inv(G0) @ world.poses_wc[i])[:3, 3]))
+             for i, r in enumerate(recs) if r.state == "OK"]
+    ms = [r.ms for r in recs[1:]]
+    res = {"frames": len(recs), "tracked": tracked,
+           "tracked_with_30_inliers": len(recs) - len(thin), "frames_under_30_inliers": thin,
+           "ransac_pnp": counts.get("ransac_pnp", 0), "keyframes": system.n_keyframes(),
+           "map_points": system.n_map_points(), "stereo_matches_frame0": int((d > 0).sum()),
+           "depth_rel_err_median_frame0": depth_err,
+           "metric_trans_err_median_m": float(np.median(trans)),
+           "metric_trans_err_max_m": float(max(trans)),
+           "launches": launches, "pose_opt_frame": counts.get("pose_opt_frame", 0),
+           "launches_per_frame": float(np.mean([r.counts["pose_lm"] for r in recs[1:]])),
+           "ms_median": _pct(ms, 50), "ms_p90": _pct(ms, 90),
+           "ms_median_30_inliers": _pct([recs[i].ms for i in range(1, len(recs))
+                                         if i not in thin], 50),
+           "ms_median_under_30_inliers": _pct([recs[i].ms for i in thin], 50) if thin else None,
+           "fetches_per_frame_median": _pct([r.counts.get("rpc_fetch", 0) for r in recs[1:]], 50),
+           "stages_ms_median": {
+               "extract_right": _pct(stage_ms["stereo_extract"][2::2], 50),
+               "extract_left": _pct(stage_ms["stereo_extract"][3::2], 50),
+               **{k.removeprefix("stereo_"): _pct(stage_ms[k][1:], 50)
+                  for k in STEREO_STAGES[1:]}}}
+    log("stereo: " + json.dumps(res))
+    log(f"stereo ms per frame (frames 1-{len(recs) - 1}, host clock around track_stereo, ends "
+        f"in grab's fetch): {[round(x, 2) for x in ms]}")
+    log("stereo stages (host clock; the fetch waits for the queued device work; frame 0 "
+        "left out): " + json.dumps({k: [round(x, 2) for x in v] for k, v in stage_ms.items()}))
+    if not depth_err < STEREO_BARS["depth_rel_err"]:
+        failed.append(f"frame 0's median depth error {depth_err:.4f}")
+    if not tracked > STEREO_BARS["tracked"] * len(recs):
+        failed.append(f"{tracked} of {len(recs)} frames tracked")
+    if not system.n_map_points() > STEREO_BARS["points"]:
+        failed.append(f"{system.n_map_points()} map points")
+    calls_made = counts.get("pose_opt_frame", 0) + counts.get("ransac_pnp", 0)
+    if launches != calls_made or counts.get("fused_step", 0) or launches < len(recs) - 1:
+        failed.append(f"{launches} pose_lm launches for {calls_made} staged pose calls, "
+                      f"{counts.get('fused_step', 0)} fused steps")
+
+    t0 = time.perf_counter()
+    cpu = track_stereo(new_system(world, "cpu"), pairs[:STEREO_CPU_FRAMES])
+    diffs = compare_records(recs[:STEREO_CPU_FRAMES], cpu)
+    worst = max(float(np.abs(a.pose_cw - b.pose_cw).max()) for a, b in zip(recs, cpu))
+    cpu_thin = [i for i, r in enumerate(cpu[1:], 1) if r.inliers < MIN_INLIERS]
+    log(f"stereo card vs CPU, {STEREO_CPU_FRAMES} frames ({time.perf_counter() - t0:.1f}s): "
+        f"max|dTcw| {worst:.3g}, inliers {[r.inliers for r in recs[:STEREO_CPU_FRAMES]]} vs "
+        f"{[r.inliers for r in cpu]}")
+    if diffs:
+        failed.append(f"the card disagrees with the CPU: {diffs}")
+    if [i for i in thin if i < STEREO_CPU_FRAMES] != cpu_thin:
+        failed.append(f"frames under {MIN_INLIERS} inliers: card {thin}, CPU {cpu_thin}")
+    if failed:
+        fail("stereo: " + "; ".join(failed))
+    res["max_abs_err"] = _hold_to_plain("stereo", calls)
+    return res
+
+
+DYNAMIC_BARS = {"tracked": 35}   # tests/test_dynamic_e2e.py: frames >= N_FRAMES - 5
+DYNAMIC_IM2COL_IMAGES = 5        # segmented images timed through the numpy im2col too
+DYNAMIC_LK_FRAME = 10            # its mask propagated to the next frame, timed on the host
+
+
+def _im2col_logits(weights: dict, image: np.ndarray) -> np.ndarray:
+    """The JAX package's numpy forward of the segmenter (im2col, one GEMM a
+    layer; swarmmap_tpu/core/dynamic.py), without its threshold: the host
+    baseline the card's convolutions replace."""
+    x = (np.asarray(image, np.float32) / 255.0)[None]
+    layers = [(weights[f"w{i}"], weights[f"b{i}"]) for i in range(len(weights) // 2)]
+    for li, (w, b) in enumerate(layers):
+        cout, cin, kh, kw = w.shape
+        H, W = x.shape[1:]
+        xp = np.pad(x, ((0, 0), (kh // 2, kh // 2), (kw // 2, kw // 2)))
+        cols = np.empty((cin * kh * kw, H * W), np.float32)
+        i = 0
+        for c in range(cin):
+            for dy in range(kh):
+                for dx in range(kw):
+                    cols[i] = xp[c, dy:dy + H, dx:dx + W].ravel()
+                    i += 1
+        x = (w.reshape(cout, -1) @ cols + b[:, None]).reshape(cout, H, W)
+        if li + 1 < len(layers):
+            np.maximum(x, 0.0, out=x)
+    return x[0]
+
+
+def _segment_recorder(tracker) -> tuple:
+    """Wrap the tracker's segmenter: every call is timed on the host clock
+    (upload, three convolutions, the fetch) and kept with its image, its
+    mask and the keypoints of the keyframe it votes for (the one just
+    enqueued).  Returns (the segmenter module, the list of calls)."""
+    runner = tracker.dynamic
+    seg, enqueue, kept, last = runner.extractor.segment_fn, runner.enqueue, [], {}
+
+    def enqueued(kf_slot, image, score=0.0):
+        last["k"] = kf_slot
+        enqueue(kf_slot, image, score)
+
+    def segment(image):
+        t0 = time.perf_counter()
+        mask = seg(image)
+        ms = (time.perf_counter() - t0) * 1e3
+        st, k = tracker.store, last["k"]
+        kept.append({"ms": ms, "image": image, "mask": mask, "uv": st.kf_kp_uv[k].copy(),
+                     "mp": st.kf_kp_mp[k].copy(), "valid": st.kf_kp_valid[k].copy()})
+        return mask
+
+    runner.enqueue, runner.extractor.segment_fn = enqueued, segment
+    return seg, kept
+
+
+def phase_dynamic(dev: torch.device) -> dict:
+    """Dynamic-object filtering on the `dynamic` cell (the monocular System
+    through a moving flock, 40 frames): the shipped segmenter on every
+    keyframe (`dynamic_on`) and the filter off (`dynamic_off`), each with
+    the counts set to 0 just before and read just after, every pose_lm
+    launch held to the plain version, 35 frames tracked; the card's
+    segmenter against the same module on the CPU on every segmented image
+    (no vote may flip), with its ms on the card and the numpy im2col's on
+    the host, and one host LK mask propagation (DynamicExtractor's step
+    between segmented frames) timed; then the first MONO_CPU_FRAMES frames
+    of the "on" run again
+    on the CPU with the card's two-view draws: the same paths, states and
+    votes."""
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.cells import (ate_share, dynamic_params, dynamic_sequence, new_system,
+                                          recorded_draws, replayed_draws, state_disagreements,
+                                          timed_record, track_mono)
+    from swarmmap_tpu_torch.core.dynamic import (SHIPPED_SEGMENTER, load_segmenter, mask_hits,
+                                                 propagate_mask)
+
+    t0 = time.perf_counter()
+    seq = dynamic_sequence()
+    log(f"dynamic cell: {seq.world.points.shape[0]} landmarks, a flock of "
+        f"{seq.world.dyn_points.shape[0]}, {seq.world.hw}, {len(seq)} frames rendered "
+        f"({time.perf_counter() - t0:.1f}s)")
+    out, failed = {}, []
+    for name, segment in (("dynamic_on", True), ("dynamic_off", False)):
+        system = new_system(seq, dev, tracking_params=dynamic_params(segment))
+        tr = system.tracking
+        card_seg, segs = _segment_recorder(tr) if segment else (None, [])
+        recs, early_votes = [], None
+        _reset_counts()
+        with record_pose_calls() as calls, recorded_draws() as draws:
+            for i in range(len(seq)):
+                recs.append(timed_record(
+                    lambda i=i: system.track_monocular(seq.read(i), seq.timestamps[i]), tr))
+                if segment and i == MONO_CPU_FRAMES - 1:
+                    n = tr.store.n_mp
+                    early_votes = (tr.dynamic.votes.dyn[:n].copy(), tr.dynamic.votes.stat[:n].copy())
+        launches, counts = _read_counts()
+        poses = {i: r.pose_cw for i, r in enumerate(recs) if r.state == "OK"}
+        rmse, span = ate_share(poses, seq.world) if poses else (float("inf"), 1.0)
+        flagged = (int(tr.dynamic.votes.is_dynamic(np.arange(tr.store.n_mp)).sum())
+                   if tr.dynamic is not None else 0)
+        ok = [i for i, r in enumerate(recs) if r.state == "OK"]
+        res = {"frames": len(recs), "tracked": len(poses), "init_frame": ok[0] if ok else None,
+               "keyframes": system.n_keyframes(), "map_points": system.n_map_points(),
+               "flagged_dynamic": flagged, "ate_m": rmse, "span_m": span, "launches": launches,
+               "fused_steps": counts.get("fused_step", 0),
+               "pose_opt_frame": counts.get("pose_opt_frame", 0),
+               "launches_per_frame": launches / len(recs),
+               "paths": [_tracker_path(r) for r in recs],
+               "frames_by_class": _mono_frames(recs, min(ok[0] if ok else 0, len(recs) - 1))}
+        log(f"{name}: " + json.dumps(res))
+        if len(poses) < DYNAMIC_BARS["tracked"]:
+            failed.append(f"{name}: {len(poses)} of {len(recs)} frames tracked")
+        made = res["fused_steps"] + res["pose_opt_frame"] + counts.get("ransac_pnp", 0)
+        if launches != made or launches == 0:
+            failed.append(f"{name}: {launches} pose_lm launches for {made} pose calls")
+        res["max_abs_err"] = _hold_to_plain(name, calls)
+        out[name] = res
+        if not segment:
+            continue
+
+        # the card's segmenter against the same weights on the CPU, image by image
+        cpu_seg = load_segmenter("cpu")
+        weights = dict(np.load(SHIPPED_SEGMENTER))
+        rows = []
+        for j, sg in enumerate(segs):
+            t1 = time.perf_counter()
+            lp = cpu_seg.logits(sg["image"]).numpy()
+            cpu_ms = (time.perf_counter() - t1) * 1e3
+            lc = card_seg.logits(sg["image"]).cpu().numpy()
+            mc, mp_ = lc > 0, lp > 0
+            hc = mask_hits(sg["mask"], sg["uv"], sg["mp"], sg["valid"])[1]
+            hp = mask_hits(mp_, sg["uv"], sg["mp"], sg["valid"])[1]
+            row = {"card_ms": sg["ms"], "cpu_torch_ms": cpu_ms,
+                   "max_abs_logit_diff": float(np.abs(lc - lp).max()),
+                   "pixels_flipped": int((mc != mp_).sum()),
+                   "mask_vs_logits_flipped": int((mc != sg["mask"]).sum()),
+                   "votes": int(len(hc)), "votes_flipped": int((hc != hp).sum())}
+            if j < DYNAMIC_IM2COL_IMAGES:
+                t1 = time.perf_counter()
+                li = _im2col_logits(weights, sg["image"])
+                row["numpy_im2col_ms"] = (time.perf_counter() - t1) * 1e3
+                row["max_abs_logit_diff_im2col"] = float(np.abs(lc - li).max())
+            rows.append(row)
+        flips = sum(r["votes_flipped"] for r in rows)
+        summary = {"segmented": len(rows),
+                   "card_ms_median": _pct([r["card_ms"] for r in rows], 50),
+                   "card_ms_p90": _pct([r["card_ms"] for r in rows], 90),
+                   "cpu_torch_ms_median": _pct([r["cpu_torch_ms"] for r in rows], 50),
+                   "numpy_im2col_ms_median": _pct([r["numpy_im2col_ms"] for r in rows
+                                                   if "numpy_im2col_ms" in r], 50),
+                   "max_abs_logit_diff": max(r["max_abs_logit_diff"] for r in rows),
+                   "pixels_flipped": sum(r["pixels_flipped"] for r in rows),
+                   "votes": sum(r["votes"] for r in rows), "votes_flipped": flips}
+        # the host LK mask propagation that DynamicExtractor runs between
+        # segmented frames when dynamic_segment_every > 1 (no cell does)
+        prev, nxt = seq.read(DYNAMIC_LK_FRAME), seq.read(DYNAMIC_LK_FRAME + 1)
+        mask = card_seg(prev)
+        t1 = time.perf_counter()
+        moved = propagate_mask(prev, nxt, mask)
+        summary["lk_propagate_ms"] = (time.perf_counter() - t1) * 1e3
+        summary["lk_mask_pixels"] = [int(mask.sum()), int(moved.sum())]
+        res["segmenter"] = summary
+        log("dynamic segmenter, card vs CPU on every segmented image: " + json.dumps(summary))
+        log("  per image: " + json.dumps(rows))
+        if not rows:
+            failed.append("dynamic_on: the segmenter never ran")
+        if flips or any(r["mask_vs_logits_flipped"] for r in rows):
+            failed.append(f"dynamic_on: {flips} votes flip between the card's segmenter and "
+                          f"the CPU's")
+
+        # the first frames again on the CPU, on the card run's two-view draws
+        t1 = time.perf_counter()
+        with replayed_draws(list(draws)):
+            cpu_sys = new_system(seq, "cpu", tracking_params=dynamic_params(True))
+            cpu = track_mono(cpu_sys, seq, MONO_CPU_FRAMES)
+        cv = cpu_sys.tracking.dynamic.votes
+        n = len(early_votes[0])
+        same_votes = (cpu_sys.store.n_mp == n and np.array_equal(cv.dyn[:n], early_votes[0])
+                      and np.array_equal(cv.stat[:n], early_votes[1]))
+        paths = ([_tracker_path(r) for r in recs[:MONO_CPU_FRAMES]],
+                 [_tracker_path(r) for r in cpu])
+        diffs = state_disagreements(recs[:MONO_CPU_FRAMES], cpu)
+        log(f"dynamic_on card vs CPU, {MONO_CPU_FRAMES} frames "
+            f"({time.perf_counter() - t1:.1f}s): states {[r.state for r in cpu]}, paths "
+            f"{paths[0]} vs {paths[1]}, votes (dynamic, static) {int(early_votes[0].sum())}, "
+            f"{int(early_votes[1].sum())} vs {int(cv.dyn[:n].sum())}, {int(cv.stat[:n].sum())}, "
+            f"equal {same_votes}; disagreements {diffs}")
+        if diffs or paths[0] != paths[1] or not same_votes:
+            failed.append("dynamic_on: the card disagrees with the CPU on its first frames")
+    log(f"dynamic: ATE with the segmenter {out['dynamic_on']['ate_m']:.4f} m, without "
+        f"{out['dynamic_off']['ate_m']:.4f} m (span {out['dynamic_on']['span_m']:.3f}; "
+        f"reported, not a bar)")
+    if failed:
+        fail("dynamic: " + "; ".join(failed))
+    return out
 
 
 SERVER_CELLS = ("server_swarm", "server_loop")
@@ -1515,6 +1913,14 @@ def main() -> None:
     sync = phase_sync(dev, mono["states"])
     tracker_paths["sync"] = {k: sync[k] for k in (
         "frames", "launches", "launches_per_frame", "max_abs_err")}
+    t_sensor = time.perf_counter()
+    stereo_run = phase_stereo(dev)
+    tracker_paths["stereo"] = {k: stereo_run[k] for k in (
+        "frames", "launches", "launches_per_frame", "max_abs_err")}
+    for name, run in phase_dynamic(dev).items():
+        tracker_paths[name] = {k: run[k] for k in (
+            "frames", "launches", "launches_per_frame", "max_abs_err")}
+    log(f"stereo and dynamic phases: {time.perf_counter() - t_sensor:.1f} s")
     t_server = time.perf_counter()
     for cell, run in phase_server(dev).items():
         tracker_paths[cell] = {k: run[k] for k in (
@@ -1549,6 +1955,7 @@ def main() -> None:
             "relocalisation": tracker_paths["tracker_reloc"]["launches_per_frame"],
             "mono_fused": mono["frames"]["fused"]["pose_lm_per_frame"],
             "mono_staged": mono["frames"]["staged"]["pose_lm_per_frame"],
+            "stereo_staged": stereo_run["launches_per_frame"],
             "swarm_cohort": swarm["swarm"]["launches_per_cohort_dispatch"],
             "swarm_double_buffer_cohort": swarm["swarm_double_buffer"][
                 "launches_per_cohort_dispatch"]},
@@ -1559,6 +1966,9 @@ def main() -> None:
         "library_ms": None,
         "synthetic_ms": synthetic_ms,
         "streaming_build": streaming,
+        # pose calls whose last LM round had fewer than 3 points, by path
+        # (held on inliers and chi2; their |dTcw| is in max_abs_err above)
+        "undetermined_pose_calls": UNDETERMINED,
     }]
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,14 +8,18 @@ by `_build.py`; every kernel has a plain PyTorch version beside it, which
 a wrapper takes only for tensors that lie on the CPU.
 
 Layer map (ported so far):
-  core/     the single-agent client (system.py): the tracker (tracking.py),
-            local mapping (local_mapping.py) and their host state: frames,
-            the map store, the keyframe database
+  core/     the single-agent client (system.py: monocular, RGB-D and
+            stereo): the tracker (tracking.py), local mapping
+            (local_mapping.py), dynamic-object filtering (dynamic.py: the
+            vote ledger, LK mask propagation, the shipped segmenter as
+            torch convolutions) and their host state: frames, the map
+            store, the keyframe database
   ops/      device programs: pyramid, FAST, orientation, rBRIEF, matching,
-            LM pose optimisation (CUDA kernel: csrc/pose_lm.cu), RANSAC
-            PnP, two-view initialisation, triangulation, bundle
-            adjustment (dense and CG), Sim3 RANSAC and refinement, the
-            essential-graph optimiser; the BoW vocabulary
+            stereo depths, LM pose optimisation (CUDA kernel:
+            csrc/pose_lm.cu), RANSAC PnP, two-view initialisation,
+            triangulation, bundle adjustment (dense and CG), Sim3 RANSAC
+            and refinement, the essential-graph optimiser; the BoW
+            vocabulary
   pipeline  the fused per-frame tracking step, batched over agents
   sync/     the change log with push / pull (oplog.py), the msgpack wire
             and map files (codec.py over msgpack_wire.py), the reference's
@@ -26,8 +30,10 @@ Layer map (ported so far):
   bench     bench.py's tracking metrics for the port on the card
   native    host C++ (csrc/*.cc, g++ + ctypes): quadtree keypoint budgets,
             covisibility, keyframe redundancy, op-log compaction
-  convert   numpy <-> tensor conversion of the JAX package's records
+  convert   numpy <-> tensor conversion of the JAX package's records, and
+            its segmenter's weights into the port's module
   utils/    config, logging, padding, stats, transfers, the synthetic world
+            (with its moving flock and stereo pairs)
 """
 import torch as _torch
 

@@ -54,6 +54,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES = 100_000_000  # ~50 ms of a held stream while the host enqueues
 
+# Fewer points than this leave the last LM round's normal equations (two
+# rows a point, six unknowns) singular: the pose moves along their null
+# directions as the 1e-9 damping and the float32 rounding pick.
+MIN_POSE_POINTS = 3
 SWEEP = ((1024, 1, 1), (1024, 1, 8), (1024, 2, 8), (1024, 4, 10), (2048, 2, 8), (2048, 4, 10))
 N_AGENTS = 3
 
@@ -164,19 +168,47 @@ def record_pose_calls():
         pose_opt.pose_optimize_auto = inner
 
 
-def against_plain(calls) -> list[dict]:
+def against_plain(calls, tcw_tol: float = 1e-3) -> list[dict]:
     """Each recorded call's result against the plain `pose_optimize` at
     step_tol = 0 (the kernel's fixed schedule) on the same tensors: its
-    schedule, point slots, max |dTcw| and inlier agreement."""
+    schedule, point slots, max |dTcw| and inlier agreement.
+
+    An agent whose |dTcw| reaches `tcw_tol` is counted as `undetermined`
+    when its last LM round ran on fewer than MIN_POSE_POINTS points (the
+    plain version's inliers after all rounds but the last; the valid
+    points for a one-round schedule), with whether its inliers equal the
+    plain version's and both results' chi2 summed over the valid points;
+    `err_determined` is the max |dTcw| over the other agents."""
     from .ops import pose_opt
 
     out = []
     for args, res in calls:
         plain = pose_opt.pose_optimize(**args, step_tol=0.0)
-        out.append({"schedule": (args["rounds"], args["iters"]),
-                    "n": int(args["valid"].shape[-1]),
-                    "err": float((res.Tcw - plain.Tcw).abs().max()),
-                    "agree": float((res.inliers == plain.inliers).float().mean())})
+        rounds, valid = args["rounds"], args["valid"]
+        err = (res.Tcw - plain.Tcw).abs().amax((-1, -2)).reshape(-1)
+        off = torch.nonzero(err >= tcw_tol).reshape(-1).tolist()
+        undetermined = []
+        if off:
+            active = (valid if rounds == 1 else pose_opt.pose_optimize(
+                **{**args, "rounds": rounds - 1}, step_tol=0.0).inliers)
+            v, act, inl_k, inl_p, chi2_k, chi2_p = (x.reshape(-1, valid.shape[-1]) for x in (
+                valid.bool(), active, res.inliers, plain.inliers, res.chi2, plain.chi2))
+            for a in off:
+                if int(act[a].sum()) < MIN_POSE_POINTS:
+                    undetermined.append({
+                        "agent": a, "err": float(err[a]),
+                        "last_round_points": int(act[a].sum()),
+                        "same_inliers": bool(torch.equal(inl_k[a], inl_p[a])),
+                        "chi2_kernel": float(chi2_k[a][v[a]].sum()),
+                        "chi2_plain": float(chi2_p[a][v[a]].sum())})
+        free = {u["agent"] for u in undetermined}
+        out.append({"schedule": (rounds, args["iters"]),
+                    "n": int(valid.shape[-1]),
+                    "err": float(err.max()),
+                    "err_determined": max((float(e) for a, e in enumerate(err)
+                                           if a not in free), default=0.0),
+                    "agree": float((res.inliers == plain.inliers).float().mean()),
+                    "undetermined": undetermined})
     return out
 
 

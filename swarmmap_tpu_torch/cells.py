@@ -22,6 +22,14 @@ hypotheses from the tracker's generator; `recorded_draws` and
 `replayed_draws` let a second run on another device (or the JAX package's
 draws) take the same ones, for the server's Sim3 RANSAC too.
 
+The `stereo` cell runs `System.track_stereo` on the tracker's world
+(40 rectified pairs, baseline 0.12 m; `stereo_pairs`, `track_stereo`) and
+the `dynamic` cell the monocular System through a moving flock
+(`dynamic_sequence`: synthesize_sequence(seed=5, motion="arc",
+n_dynamic=60), 1500 landmarks, 40 frames), with the shipped segmenter on
+every keyframe and with the filter off (`dynamic_params`), both at the
+same geometry and ORB settings.
+
 The edge server's cells (`server_sequences`): `server_swarm`, 3 agents
 on one landmark field (synthesize_sequence(seed=0, agent=a), 60 frames,
 350 landmarks), and `server_loop`, one agent on the seed-2 circuit (100
@@ -117,14 +125,62 @@ def mono_sequence(hw: tuple[int, int] = HW, n_points: int = MONO_LANDMARKS,
 
 
 def new_system(seq, device, n_features: int = N_FEATURES, n_levels: int = N_LEVELS,
-               rng_seed: int = 0):
-    """A monocular System (tracking + local mapping) on an empty map with
-    the sequence's camera, on `device`, its RANSAC draws seeded by
-    rng_seed."""
+               rng_seed: int = 0, tracking_params=None):
+    """A System (tracking + local mapping) on an empty map with the camera
+    of `seq` (a sequence, or a world), on `device`, its RANSAC draws seeded
+    by rng_seed."""
     from .core.system import System
 
-    return System(settings_for(seq.world, n_features, n_levels), rng_seed=rng_seed,
-                  device=device)
+    world = getattr(seq, "world", seq)
+    return System(settings_for(world, n_features, n_levels), rng_seed=rng_seed,
+                  tracking_params=tracking_params, device=device)
+
+
+# the stereo cell: System.track_stereo on the tracker cell's world
+STEREO_FRAMES = 40
+STEREO_BASELINE = 0.12    # m: the JAX package's default (EuRoC's rig: 0.11 m)
+
+
+def stereo_pairs(world, n: int, baseline: float = STEREO_BASELINE):
+    """Rectified (left, right) pairs of frames 0..n-1."""
+    from .utils import datasets
+
+    return [datasets.render_stereo_pair(world, i, baseline) for i in range(n)]
+
+
+def track_stereo(system, pairs, baseline: float = STEREO_BASELINE) -> list[FrameRecord]:
+    """`System.track_stereo` on each pair at i / 20 s, one timed and counted
+    record per frame."""
+    return [timed_record(lambda i=i, lr=lr: system.track_stereo(*lr, i / 20.0, baseline=baseline),
+                         system.tracking)
+            for i, lr in enumerate(pairs)]
+
+
+# the dynamic cell: a monocular System on an arc through a moving flock
+DYNAMIC_FRAMES = 40
+DYNAMIC_LANDMARKS = 1500
+DYNAMIC_SEED = 5
+DYNAMIC_FLOCK = 60
+
+
+def dynamic_sequence(hw: tuple[int, int] = HW, n_points: int = DYNAMIC_LANDMARKS):
+    """synthesize_sequence(seed=5, motion="arc", n_dynamic=60):
+    tests/test_dynamic_e2e.py's flock sequence, with the ground truth
+    attached (`.world`)."""
+    from .utils import datasets
+
+    return datasets.synthesize_sequence(n_frames=DYNAMIC_FRAMES, hw=hw, seed=DYNAMIC_SEED,
+                                        n_points=n_points, motion="arc",
+                                        n_dynamic=DYNAMIC_FLOCK)
+
+
+def dynamic_params(segment: bool):
+    """TrackingParams of the dynamic cell: the shipped segmenter on every
+    keyframe with the filter on, or neither (test_dynamic_e2e.py's two
+    runs)."""
+    from .core.tracking import TrackingParams
+
+    return TrackingParams(dynamic_filter=segment, dynamic_segment="conv" if segment else None)
 
 
 def ate_share(poses: dict, world) -> tuple[float, float]:
@@ -178,6 +234,18 @@ def frame_record(tracker, ms: float = 0.0, counts: dict | None = None) -> FrameR
         since_kf=int(f.frame_id - tracker.last_kf_frame_id),
         ms=ms, counts=counts or {},
     )
+
+
+def by_position(record: FrameRecord, tracker) -> FrameRecord:
+    """`record` of `tracker`'s last frame with each (keypoint, map point)
+    pair keyed by positions instead of indices: the keypoint's (x, y) and
+    the map point's stored position.  For two packages' front ends, whose
+    pyramid levels differ by +-1 in a few pixels: two keypoints' FAST
+    scores can then differ by one and their order swap, and with it the
+    order in which a depth initialisation numbers their map points."""
+    xy, pos = tracker.last_frame.xy, tracker.store.mp_pos
+    return record._replace(pairs=frozenset(
+        (float(xy[i, 0]), float(xy[i, 1]), *map(float, pos[m])) for i, m in record.pairs))
 
 
 def render_frames(world, n: int) -> list[tuple[np.ndarray, np.ndarray]]:

@@ -4,13 +4,17 @@ The JAX package's records (`TrackInputs`, `TrackOutputs`, `FrameFeatures`,
 `PoseOptResult`), taken as numpy arrays (`np.asarray` of each field),
 become this package's tensors and back, so a test can feed the same state
 to both and compare field by field in numpy.  Descriptor words are uint32
-in the JAX package and int32 here, holding the same bits.
+in the JAX package and int32 here, holding the same bits.  The JAX
+package's one set of trained parameters, the dynamic-object segmenter's
+(`data/dyn_segmenter.npz`), becomes this package's module through
+`segmenter_from_numpy`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.dynamic import ConvSegmenter
 from .ops.extractor import FrameFeatures
 from .ops.pose_opt import PoseOptResult
 from .pipeline import TrackInputs, TrackOutputs
@@ -58,3 +62,21 @@ def track_outputs_to_numpy(out: TrackOutputs) -> TrackOutputs:
 
 def pose_result_to_numpy(res: PoseOptResult) -> PoseOptResult:
     return PoseOptResult(*(to_numpy(x) for x in res))
+
+
+def segmenter_from_numpy(weights: dict[str, np.ndarray],
+                         device: torch.device | str | None = None) -> ConvSegmenter:
+    """The JAX package's ConvSegmenter parameters (`w{i}` [cout, cin, kh,
+    kw] and `b{i}` [cout] for i = 0, 1, ..., the dict its __init__ reads)
+    -> this package's ConvSegmenter on `device` (by default the card), in
+    float32."""
+    device = default_device() if device is None else device
+    n = 0
+    while f"w{n}" in weights:
+        n += 1
+    seg = ConvSegmenter([np.shape(weights[f"w{i}"]) for i in range(n)], device)
+    with torch.no_grad():
+        for i, conv in enumerate(seg.convs):
+            conv.weight.copy_(torch.from_numpy(np.asarray(weights[f"w{i}"], np.float32)))
+            conv.bias.copy_(torch.from_numpy(np.asarray(weights[f"b{i}"], np.float32)))
+    return seg.eval()

@@ -6,8 +6,9 @@ device (by default the card).  Like the reference client, loop closing is
 NOT run here — it lives server-side in the mediator (System.cc:96-97); the
 AddLoopClosing map events flow to it through the sync layer.
 
-Not ported yet, and raising NotImplementedError: `track_stereo` (ROADMAP
-queue 1, item 16).
+The three sensor paths of the reference are here: `track_monocular`,
+`track_rgbd` and `track_stereo` (per-keypoint depth from rectified
+stereo matching, `ops/stereo.py`, on the tracker's device).
 """
 from __future__ import annotations
 
@@ -16,10 +17,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops import extractor as ex
+from ..ops import stereo
 from ..ops.vocab import Vocabulary, default_vocabulary
 from ..utils.config import Settings
-from ..utils.device import default_device
+from ..utils.device import default_device, fetch
 from ..utils.logging import get_logger
+from ..utils.stats import STATS
 from ..utils.trajectory import save_tum
 from .keyframe_db import KeyFrameDatabase
 from .local_mapping import LocalMapping
@@ -73,9 +77,36 @@ class System:
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float, baseline: float = 0.12) -> np.ndarray | None:
-        """reference: System::TrackStereo"""
-        raise NotImplementedError(
-            "stereo tracking (ops/stereo.py) is not ported yet (ROADMAP queue 1, item 16)")
+        """reference: System::TrackStereo — rectified pair; per-keypoint
+        depth from row-banded descriptor matching (ops/stereo.py).  The
+        STATS stages `stereo_extract` (twice: right, then left),
+        `stereo_depths`, `stereo_fetch` and `stereo_grab` time its steps
+        on the host clock; the fetch waits for the device work queued
+        before it."""
+        dev = self.tracking.device
+        orb = self.settings.orb
+        kw = dict(n_features=orb.n_features, n_levels=orb.n_levels,
+                  scale=orb.scale_factor, th_high=float(orb.ini_th_fast),
+                  th_low=float(orb.min_th_fast))
+        feats = []
+        for img in (right, left):
+            with STATS.stage("stereo_extract"):
+                feats.append(ex.extract_orb(
+                    torch.from_numpy(np.ascontiguousarray(img)).to(dev), **kw))
+        featsR, featsL = feats
+        with STATS.stage("stereo_depths"):
+            d = stereo.stereo_depths(
+                featsL.xy, featsL.desc, featsL.octave, featsL.valid,
+                featsR.xy, featsR.desc, featsR.octave, featsR.valid,
+                fx=float(self.settings.camera.fx), baseline=baseline,
+                scale=orb.scale_factor,
+            )
+        with STATS.stage("stereo_fetch"):
+            depth = np.asarray(fetch(d))
+        # hand the left features' depths to the tracker via kp_depth;
+        # build_frame re-extracts deterministically so indices align
+        with STATS.stage("stereo_grab"):
+            return self.tracking.grab(left, timestamp, kp_depth=depth)
 
     @property
     def state(self) -> TrackingState:

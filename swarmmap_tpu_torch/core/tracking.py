@@ -19,9 +19,11 @@ as `rpc_fetch`.
 Monocular frames before the map exists go through two-view initialisation
 (`ops/twoview.py`) and a dense BA of the two first keyframes
 (`ops/ba.py`); every later keyframe goes to `local_mapping` when one is
-attached (`core/local_mapping.py`, `core/system.py` wires it).  Not ported
-yet, and raising NotImplementedError: dynamic-object filtering (ROADMAP
-queue 1, item 19).
+attached (`core/local_mapping.py`, `core/system.py` wires it).  With
+`TrackingParams.dynamic_filter` or `dynamic_segment`, dynamic-object
+filtering (`core/dynamic.py`) votes map points dynamic and keeps the
+voted ones out of the fused local map and the motion-model candidates;
+the "conv" segmenter runs on the tracker's device.
 """
 from __future__ import annotations
 
@@ -147,9 +149,16 @@ class Tracking:
         self.p = params or TrackingParams()
         self.dynamic = None
         if self.p.dynamic_filter or self.p.dynamic_segment is not None:
-            raise NotImplementedError(
-                "dynamic-object filtering (core/dynamic.py) is not ported yet "
-                "(ROADMAP queue 1, item 19)")
+            from .dynamic import DynamicExtractor, DynamicRunner
+
+            seg = self.p.dynamic_segment
+            if seg == "conv":
+                from .dynamic import load_segmenter
+
+                seg = load_segmenter(device=self.device)
+            ex = (DynamicExtractor(seg, self.p.dynamic_segment_every)
+                  if callable(seg) else None)
+            self.dynamic = DynamicRunner(store, extractor=ex)
         self.state = TrackingState.NO_IMAGES_YET
         self.init_frame: Frame | None = None
         self.last_frame: Frame | None = None
@@ -261,6 +270,8 @@ class Tracking:
             slots = np.concatenate([seed_arr, extra])
         else:
             slots = seed_arr
+        if self.dynamic is not None and len(slots):
+            slots = slots[self.dynamic.filter_static(slots)]
         return slots[: self.p.fused_local_bucket].astype(np.int32)
 
     def fused_eligible(self, image_ok: bool = True) -> bool:
@@ -770,6 +781,15 @@ class Tracking:
         Tcw_np, inl = fetch(res.Tcw, res.inliers)
         frame.pose_cw = np.asarray(Tcw_np)
         inl = np.asarray(inl)
+        if self.dynamic is not None and self.dynamic.extractor is None:
+            # model-free fallback ONLY: rigid-motion outliers are dynamic
+            # evidence, inliers static.  With an appearance segmenter
+            # configured, appearance is the sole evidence source — the
+            # per-frame residual vote's false-positive rate (transient
+            # outliers under fast motion / marginal matches) otherwise
+            # out-shouts the per-keyframe mask votes and flags swaths of
+            # static map (observed: 691 of ~900 points flagged).
+            self.dynamic.votes.vote(slots[valid], ~inl[valid])
         frame.mp[valid & ~inl] = NO_MP
         return int(inl.sum())
 
@@ -782,6 +802,8 @@ class Tracking:
         has = (lf.mp != NO_MP)
         raw = lf.mp[has]
         raw = raw[st.mp_alive[raw]]
+        if self.dynamic is not None and len(raw):
+            raw = raw[self.dynamic.filter_static(raw)]
         if len(raw) < 10:
             return False
         slots, kp_idx, valid, _vis = self._match_against_mps(

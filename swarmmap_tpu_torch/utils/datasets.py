@@ -5,9 +5,11 @@ port cannot import on a machine without JAX (every module of the JAX
 package loads JAX first).  It renders a fixed 3D landmark field from a
 smooth camera trajectory, and gives arrays identical to the JAX package's
 for the same arguments, and `synthesize_sequence` wraps them as an
-`ImageSequence` with the ground truth attached.  The moving-flock option
-(`n_dynamic > 0`) and the file loaders (EuRoC, TUM, KITTI) are not ported
-yet.
+`ImageSequence` with the ground truth attached.  With `n_dynamic > 0` a
+rigid flock of striped patches drifts through the near field (the moving
+objects of dynamic-object filtering, `core/dynamic.py`);
+`render_stereo_pair` renders a rectified stereo pair.  The file loaders
+(EuRoC, TUM, KITTI) are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +37,20 @@ class SyntheticWorld:
     # radial-tangential lens model (k1,k2,p1,p2,k3); zeros = pinhole
     dist: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(5, np.float32))
+    # moving rigid flock (the dynamic-object analogue of the reference's
+    # people/vehicles, DynamicExtractor.cc): positions are
+    # dyn_points + t * dyn_vel at frame-time t in [0,1]; textures are
+    # the STRIPE appearance class (core.dynamic.stripe_texture) so the
+    # shipped appearance segmenter can reject them
+    dyn_points: np.ndarray | None = None   # [D,3] at t=0
+    dyn_vel: np.ndarray | None = None      # [3] world units over the sequence
+    dyn_textures: np.ndarray | None = None  # [D,ps,ps] uint8
+
+    def dyn_at(self, i: int) -> np.ndarray | None:
+        if self.dyn_points is None:
+            return None
+        t = i / max(len(self.poses_wc) - 1, 1)
+        return self.dyn_points + t * self.dyn_vel
 
 
 def distort_points_np(pc: np.ndarray, K: np.ndarray,
@@ -64,8 +80,6 @@ def make_world(
 ) -> SyntheticWorld:
     """Landmark field + smooth trajectory.  Different `agent` values share
     the SAME world (same seed for points) but follow offset trajectories."""
-    if n_dynamic:
-        raise NotImplementedError("the moving flock (n_dynamic > 0) is not ported yet")
     rng = np.random.RandomState(seed)
     h, w = hw
     if motion == "circuit":
@@ -143,16 +157,42 @@ def make_world(
     world = SyntheticWorld(points=pts, textures=tex, poses_wc=poses, K=K, hw=hw)
     if dist is not None:
         world.dist = np.asarray(dist, np.float32)
+    if n_dynamic:
+        # a rigid flock of corner-bearing striped patches drifting
+        # through the near field: close to the camera (large apparent
+        # motion and pose-opt weight) and moving coherently, so its
+        # matches bias the pose estimate instead of averaging out —
+        # the degenerate case dynamic filtering exists for.  Imported
+        # here: core.dynamic imports core.map_store.
+        from ..core.dynamic import stripe_texture
+
+        world.dyn_points = np.stack(
+            [
+                rng.uniform(-3.0, 3.0, n_dynamic),
+                rng.uniform(-2.0, 2.0, n_dynamic),
+                rng.uniform(3.2, 5.5, n_dynamic),
+            ],
+            axis=1,
+        )
+        world.dyn_vel = np.array([0.8, 0.25, 0.0])
+        dtex = np.empty((n_dynamic, ps, ps), np.uint8)
+        disk = r <= 2.5
+        for j in range(n_dynamic):
+            t = stripe_texture(ps, rng)
+            t[disk] = rng.uniform(215, 255)
+            dtex[j] = np.clip(t, 0, 255).astype(np.uint8)
+        world.dyn_textures = dtex
     return world
 
 
 def render_frame(
     world: SyntheticWorld, i: int, return_depth: bool = False,
-    pose_wc: np.ndarray | None = None,
+    pose_wc: np.ndarray | None = None, return_dyn_mask: bool = False,
 ):
     """Render frame i: project landmarks, stamp their textures.
     With return_depth, also emit a dense depth map (landmark depth on the
-    stamped patch, +inf on background)."""
+    stamped patch, +inf on background); with return_dyn_mask, the mask of
+    the pixels the moving flock covers."""
     h, w = world.hw
     img = np.full((h, w), 35, dtype=np.float32)
     # gentle illumination gradient so the background isn't flat
@@ -183,10 +223,45 @@ def render_frame(
             img[v - r: v + r + 1, u - r: u + r + 1], patch
         )
         depth[v - r: v + r + 1, u - r: u + r + 1] = z[j]
+    dyn_mask = np.zeros((h, w), bool)
+    dpts = world.dyn_at(i)
+    if dpts is not None:
+        # the moving flock occludes the static field (it is nearer)
+        pc = dpts @ R_cw.T + t_cw
+        z = pc[:, 2]
+        if np.any(world.dist != 0):
+            uv = distort_points_np(pc, world.K, world.dist)
+        else:
+            uv = (pc[:, :2] / np.maximum(z[:, None], 1e-6)) @ np.diag(
+                [world.K[0, 0], world.K[1, 1]]
+            ) + world.K[:2, 2]
+        for j in np.argsort(-z):
+            if z[j] <= 0.3:
+                continue
+            u, v = int(round(uv[j, 0])), int(round(uv[j, 1]))
+            if not (r <= u < w - r and r <= v < h - r):
+                continue
+            img[v - r: v + r + 1, u - r: u + r + 1] = world.dyn_textures[j]
+            depth[v - r: v + r + 1, u - r: u + r + 1] = z[j]
+            dyn_mask[v - r: v + r + 1, u - r: u + r + 1] = True
     out = np.clip(img, 0, 255).astype(np.uint8)
+    if return_depth and return_dyn_mask:
+        return out, depth, dyn_mask
     if return_depth:
         return out, depth
+    if return_dyn_mask:
+        return out, dyn_mask
     return out
+
+
+def render_stereo_pair(world: SyntheticWorld, i: int, baseline: float = 0.12):
+    """Left/right rectified pair: right camera shifted by `baseline`
+    along the camera x-axis (standard rectified stereo geometry)."""
+    left = render_frame(world, i)
+    T = world.poses_wc[i].copy()
+    T[:3, 3] = T[:3, 3] + T[:3, :3] @ np.array([baseline, 0.0, 0.0])
+    right = render_frame(world, i, pose_wc=T)
+    return left, right
 
 
 @dataclasses.dataclass
@@ -215,10 +290,12 @@ def synthesize_sequence(
     n_points: int = 600,
     focal: float | None = None,
     dist: np.ndarray | None = None,
+    n_dynamic: int = 0,
 ) -> ImageSequence:
     """`n_frames` rendered frames of `make_world`, at `fps`, with the
     world attached as `.world`."""
     world = make_world(n_points=n_points, n_frames=n_frames, hw=hw, seed=seed,
-                       agent=agent, motion=motion, focal=focal, dist=dist)
+                       agent=agent, motion=motion, focal=focal, dist=dist,
+                       n_dynamic=n_dynamic)
     frames = np.stack([render_frame(world, i) for i in range(n_frames)])
     return ImageSequence(timestamps=np.arange(n_frames) / fps, frames=frames, world=world)

@@ -6,8 +6,10 @@ through the kernel, a map saved, loaded and relocalised against, and the
 server's device programs (the CG bundle adjustment and the pose graph,
 bit-equal across card runs) and one server request, card against CPU;
 `utils.device.fetch` / `fetch_async` waiting on their own copies only;
-and the in-process swarm (`swarm.Swarm`) on the card against the CPU,
-with one cohort dispatch's pose stage against the plain version.
+the in-process swarm (`swarm.Swarm`) on the card against the CPU, with
+one cohort dispatch's pose stage against the plain version; and the
+stereo path (`stereo_depths`, the left extraction repeated bit for bit,
+five stereo frames) and the dynamic-object segmenter, card against CPU.
 
 This file imports no JAX, so it also runs on a machine that has none:
 
@@ -542,3 +544,85 @@ def test_swarm_cohort_pose_kernel_matches_plain(swarm_on_card):
     rp = pose_opt.pose_optimize(*prob, rounds=2, iters=8, step_tol=0.0)
     assert float((rk.Tcw - rp.Tcw).abs().max()) < 1e-3
     assert float((rk.inliers == rp.inliers).float().mean()) > 0.99
+
+
+def test_stereo_depths_on_gpu_matches_cpu(cuda):
+    """`stereo_depths` on the card against the CPU on the same features
+    (one pair of the stereo cell at full width, 1000 features, 8 levels):
+    the same matched set, depths within 1e-6 relative."""
+    from swarmmap_tpu_torch.cells import STEREO_BASELINE, stereo_pairs
+    from swarmmap_tpu_torch.ops import extractor, stereo
+
+    world = tracker_world()
+    left, right = stereo_pairs(world, 1)[0]
+    fL, fR = (extractor.extract_orb(torch.from_numpy(x), n_features=1000, n_levels=8)
+              for x in (left, right))
+    args = [getattr(f, k) for f in (fL, fR) for k in ("xy", "desc", "octave", "valid")]
+    kw = dict(fx=float(world.K[0, 0]), baseline=STEREO_BASELINE)
+    cpu = stereo.stereo_depths(*args, **kw).numpy()
+    card = stereo.stereo_depths(*(a.to(cuda) for a in args), **kw).cpu().numpy()
+    ok = cpu > 0
+    assert ok.sum() > 100
+    np.testing.assert_array_equal(card > 0, ok)
+    np.testing.assert_array_less(np.abs(card[ok] - cpu[ok]), 1e-6 * cpu[ok])
+
+
+def test_left_extraction_repeats_on_gpu(cuda):
+    """`System.track_stereo` computes depths on one extraction of the left
+    image and `build_frame` extracts it again: on the card the two give
+    the same bits (480x752, 1000 features, 8 levels)."""
+    from swarmmap_tpu_torch.cells import stereo_pairs
+    from swarmmap_tpu_torch.ops import extractor
+
+    left = torch.from_numpy(stereo_pairs(tracker_world(), 1)[0][0]).to(cuda)
+    a, b = (extractor.extract_orb(left, n_features=1000, n_levels=8) for _ in range(2))
+    for f in ("xy", "desc", "octave", "valid", "angle", "response"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_segmenter_on_gpu_matches_cpu(cuda):
+    """The shipped segmenter on the card against the CPU module on frames
+    of the dynamic cell (480x752): masks equal wherever |logit| > 1e-4;
+    each device's float32 logits within 1.5e-5 of a float64 forward, so
+    within 3e-5 of each other.  (Logits reach |16| here, where a float32
+    ulp is 1.9e-6: each device sums its 200-term dot products in its own
+    order and lands 0.7-1.1e-5 from the exact result, card against CPU
+    1.0-1.3e-5 apart; the 1e-5 bar of the CPU parity test, JAX's im2col
+    against the port at 240x320, holds there at 7.6e-6.)"""
+    import copy
+
+    from swarmmap_tpu_torch.cells import dynamic_sequence
+    from swarmmap_tpu_torch.core.dynamic import load_segmenter
+
+    seq = dynamic_sequence()
+    card, cpu = load_segmenter(cuda), load_segmenter("cpu")
+    exact = copy.deepcopy(cpu).double()
+    assert card.convs[0].weight.device.type == "cuda"
+    for i in (0, 20, 39):
+        img = seq.read(i)
+        lc, lp = card.logits(img).cpu().numpy(), cpu.logits(img).numpy()
+        x = (torch.from_numpy(img.astype(np.float64)) / 255.0)[None, None]
+        with torch.no_grad():
+            for li, conv in enumerate(exact.convs):
+                x = conv(x) if li + 1 == len(exact.convs) else torch.relu(conv(x))
+        l64 = x[0, 0].numpy()
+        assert np.abs(lc - l64).max() < 1.5e-5 and np.abs(lp - l64).max() < 1.5e-5
+        assert np.abs(lc - lp).max() < 3e-5
+        sure = np.abs(lp) > 1e-4
+        np.testing.assert_array_equal(card(img)[sure], (lp > 0)[sure])
+
+
+def test_stereo_on_gpu_matches_cpu(cuda):
+    """Five stereo frames at 240x320 (400 features, 4 levels) on the card
+    and on the CPU: the tracker's parity bars, two pose_lm launches a
+    frame after the first."""
+    from swarmmap_tpu_torch.cells import new_system, stereo_pairs, track_stereo
+
+    world = tracker_world(hw=(240, 320), n_points=350)
+    pairs = stereo_pairs(world, 5)
+    cpu = track_stereo(new_system(world, "cpu", 400, 4), pairs)
+    card = track_stereo(new_system(world, cuda, 400, 4), pairs)
+    torch.cuda.synchronize()
+    assert compare_records(cpu, card) == []
+    assert [r.state for r in card] == ["OK"] * 5
+    assert [r.counts["pose_lm"] for r in card[1:]] == [2] * 4

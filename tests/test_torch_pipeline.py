@@ -125,22 +125,33 @@ def test_realistic_inputs_match_jax(jax_inputs):
                                       np.asarray(getattr(e_a, f)))
 
 
-@pytest.mark.parametrize("motion,dist", [
-    ("arc", None), ("circuit", None),
-    ("arc", np.array([-0.28, 0.07, 2e-4, 2e-5, 0.0], np.float32)),
+@pytest.mark.parametrize("motion,dist,n_dynamic", [
+    ("arc", None, 0), ("circuit", None, 0),
+    ("arc", np.array([-0.28, 0.07, 2e-4, 2e-5, 0.0], np.float32), 0),
+    ("arc", None, 60),
 ])
-def test_synthetic_world_identical(motion, dist):
-    kw = dict(n_points=300, n_frames=12, hw=HW, seed=7, agent=1, motion=motion, dist=dist)
+def test_synthetic_world_identical(motion, dist, n_dynamic):
+    kw = dict(n_points=300, n_frames=12, hw=HW, seed=7, agent=1, motion=motion, dist=dist,
+              n_dynamic=n_dynamic)
     wa, wb = jdata.make_world(**kw), datasets.make_world(**kw)
-    for f in ("points", "textures", "poses_wc", "K", "dist"):
+    fields = ("points", "textures", "poses_wc", "K", "dist")
+    if n_dynamic:
+        fields += ("dyn_points", "dyn_vel", "dyn_textures")
+    else:
+        assert wb.dyn_points is None and wb.dyn_at(0) is None
+    for f in fields:
         np.testing.assert_array_equal(getattr(wb, f), getattr(wa, f))
     for i in (0, 5, 11):
-        ia, da = jdata.render_frame(wa, i, return_depth=True)
-        ib, db = datasets.render_frame(wb, i, return_depth=True)
+        ia, da, ma = jdata.render_frame(wa, i, return_depth=True, return_dyn_mask=True)
+        ib, db, mb = datasets.render_frame(wb, i, return_depth=True, return_dyn_mask=True)
         np.testing.assert_array_equal(ib, ia)
         np.testing.assert_array_equal(db, da)
-    with pytest.raises(NotImplementedError):
-        datasets.make_world(n_dynamic=3)
+        np.testing.assert_array_equal(mb, ma)
+        assert mb.any() == bool(n_dynamic)
+        # the other return shapes
+        np.testing.assert_array_equal(datasets.render_frame(wb, i), ia)
+        np.testing.assert_array_equal(datasets.render_frame(wb, i, return_dyn_mask=True)[1], ma)
+        np.testing.assert_array_equal(datasets.render_frame(wb, i, return_depth=True)[1], da)
 
 
 @pytest.mark.parametrize("entry", [
@@ -175,15 +186,17 @@ def _env():
 
 
 def test_port_never_reaches_jax():
-    """Guard: with jax, jaxlib, the JAX package, PyYAML and msgpack made
-    unimportable, the port imports (its sync layer, SwarmAgent, Swarm,
-    bench and every server module too), runs a small tracking step on its
-    plain path, tracks three RGB-D frames with its tracker, round-trips
-    its map through the codec, serves it as one push to a scheduler and
-    builds and finishes a 2-agent Swarm."""
+    """Guard: with jax, jaxlib, the JAX package, PyYAML, msgpack and cv2
+    made unimportable, the port imports (its sync layer, SwarmAgent,
+    Swarm, bench, stereo, dynamic filtering and every server module too),
+    runs a small tracking step on its plain path, tracks three RGB-D
+    frames with its tracker, round-trips its map through the codec, serves
+    it as one push to a scheduler, builds and finishes a 2-agent Swarm,
+    tracks two stereo frames and segments a keyframe with the shipped
+    segmenter."""
     code = (
         "import sys\n"
-        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack')\n"
+        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack', 'cv2')\n"
         "for m in [m for m in sys.modules if m.split('.')[0] in blocked]:\n"
         "    del sys.modules[m]\n"
         "for m in blocked:\n"
@@ -226,6 +239,19 @@ def test_port_never_reaches_jax():
         "sw = swarm.Swarm(2, s, config=swarm.SwarmConfig(), device='cpu')\n"
         "sw.finish()\n"
         "assert len(sw.agents) == len(sw.mediators) == 2 and sw.mesh is None\n"
+        "from swarmmap_tpu_torch.core import dynamic, system\n"
+        "from swarmmap_tpu_torch.ops import stereo\n"
+        "st = system.System(s, device='cpu')\n"
+        "for i in range(2):\n"
+        "    left, right = datasets.render_stereo_pair(w, i)\n"
+        "    assert st.track_stereo(left, right, i / 20.0) is not None\n"
+        "assert st.state.name == 'OK' and st.n_map_points() > 100\n"
+        "t = tracking.Tracking(s, map_store.MapStore(), keyframe_db.KeyFrameDatabase(voc), voc,"
+        " params=tracking.TrackingParams(dynamic_segment='conv'), device='cpu')\n"
+        "img, d = datasets.render_frame(w, 0, return_depth=True)\n"
+        "t.grab(img, 0.0, depth_image=d)\n"
+        "assert isinstance(t.dynamic.extractor.segment_fn, dynamic.ConvSegmenter)\n"
+        "assert t.dynamic.votes.stat.sum() > 0\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in blocked"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
