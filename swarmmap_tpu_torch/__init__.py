@@ -26,14 +26,24 @@ Layer map (ported so far):
             boost text wire and binary map files
   server/   the edge server: per-client replicas (mediator.py), the STS
             scheduler, loop closing, map merge and joint group BA
-  swarm     SwarmAgent: one client with its change log and sync endpoints
+  swarm     SwarmAgent: one client with its change log and sync endpoints;
+            Swarm: N agents, their mediators and the scheduler in one
+            process, the steady agents' frames as one batched dispatch
+  cli/      the entry points (swarm_map, mono, swarm_server, swarm_client,
+            relocalizer), on the card unless --device names another
+  net/      the websocket transport (ws_wire.py: RFC 6455 on asyncio
+            streams) and the client / server / dispatch services
+  viz/      the HTML map viewer, the live view, matplotlib PNG maps
   bench     bench.py's tracking metrics for the port on the card
   native    host C++ (csrc/*.cc, g++ + ctypes): quadtree keypoint budgets,
             covisibility, keyframe redundancy, op-log compaction
   convert   numpy <-> tensor conversion of the JAX package's records, and
             its segmenter's weights into the port's module
-  utils/    config, logging, padding, stats, transfers, the synthetic world
-            (with its moving flock and stereo pairs)
+  utils/    config (its own cv::FileStorage YAML reader), the EuRoC /
+            TUM / KITTI loaders over png.py (a PNG codec on zlib), logging,
+            padding, stats, timers, trajectory files, transfers,
+            torch.profiler ranges, the synthetic world (with its moving
+            flock and stereo pairs)
 """
 import torch as _torch
 

@@ -168,26 +168,68 @@ def record_pose_calls():
         pose_opt.pose_optimize_auto = inner
 
 
+# each argument's dims with the agent axis (an unbatched call lacks it)
+AGENT_DIMS = {"Tcw0": 3, "K": 3, "pts_w": 3, "uv": 3, "inv_sigma2": 2, "valid": 2}
+
+
+def plain_results(calls) -> list:
+    """The plain `pose_optimize` at step_tol = 0 of each recorded call.
+    Calls with one schedule, gate, point count and device run as one
+    batch: the agents are independent rows, and an agent that stops stays
+    frozen while the others go on, as it would alone.  Each call gets its
+    own rows back, in its own shape."""
+    from .ops import pose_opt
+
+    groups: dict[tuple, list[int]] = {}
+    for i, (args, _) in enumerate(calls):
+        T = args["Tcw0"]
+        groups.setdefault((args["rounds"], args["iters"], float(args["chi2_th"]),
+                           args["valid"].shape[-1], T.device, T.dtype), []).append(i)
+    out = [None] * len(calls)
+    for (rounds, iters, chi2_th, *_), idx in groups.items():
+        rows = []
+        for i in idx:
+            args = calls[i][0]
+            a = args["Tcw0"].shape[0] if args["Tcw0"].dim() == 3 else 1
+            rows.append({k: (args[k] if args[k].dim() == d else args[k][None]).expand(
+                a, *args[k].shape[-(d - 1):]) for k, d in AGENT_DIMS.items()})
+        res = pose_opt.pose_optimize(**{k: torch.cat([r[k] for r in rows]) for k in AGENT_DIMS},
+                                     rounds=rounds, iters=iters, chi2_th=chi2_th, step_tol=0.0)
+        start = 0
+        for i, r in zip(idx, rows):
+            a = r["Tcw0"].shape[0]
+            one = [x[start:start + a] for x in res]
+            out[i] = type(res)(*(one if calls[i][0]["Tcw0"].dim() == 3 else (x[0] for x in one)))
+            start += a
+    return out
+
+
 def against_plain(calls, tcw_tol: float = 1e-3) -> list[dict]:
     """Each recorded call's result against the plain `pose_optimize` at
-    step_tol = 0 (the kernel's fixed schedule) on the same tensors: its
-    schedule, point slots, max |dTcw| and inlier agreement.
+    step_tol = 0 (the kernel's fixed schedule) on the same tensors
+    (`plain_results`): its schedule, point slots, max |dTcw| and inlier
+    agreement.
 
     An agent whose |dTcw| reaches `tcw_tol` is counted as `undetermined`
-    when its last LM round ran on fewer than MIN_POSE_POINTS points (the
-    plain version's inliers after all rounds but the last; the valid
+    when float32 does not fix its pose, for one of two reasons (`why`):
+    "points", its last LM round ran on fewer than MIN_POSE_POINTS points
+    (the plain version's inliers after all rounds but the last; the valid
     points for a one-round schedule), with whether its inliers equal the
     plain version's and both results' chi2 summed over the valid points;
+    or "rounding", on the card, the plain version there and its run on the
+    CPU part by `tcw_tol` or more (float32 in another reduction order lands
+    elsewhere, as when an earlier round ran on 1-2 points), with the max
+    |dT| of the kernel's pose from a float64 solve of the same call and
+    the larger of the two plain poses' (`kernel_to_f64`, `plain_to_f64`).
     `err_determined` is the max |dTcw| over the other agents."""
     from .ops import pose_opt
 
     out = []
-    for args, res in calls:
-        plain = pose_opt.pose_optimize(**args, step_tol=0.0)
+    for (args, res), plain in zip(calls, plain_results(calls)):
         rounds, valid = args["rounds"], args["valid"]
         err = (res.Tcw - plain.Tcw).abs().amax((-1, -2)).reshape(-1)
         off = torch.nonzero(err >= tcw_tol).reshape(-1).tolist()
-        undetermined = []
+        undetermined, rest = [], []
         if off:
             active = (valid if rounds == 1 else pose_opt.pose_optimize(
                 **{**args, "rounds": rounds - 1}, step_tol=0.0).inliers)
@@ -196,11 +238,31 @@ def against_plain(calls, tcw_tol: float = 1e-3) -> list[dict]:
             for a in off:
                 if int(act[a].sum()) < MIN_POSE_POINTS:
                     undetermined.append({
-                        "agent": a, "err": float(err[a]),
+                        "agent": a, "why": "points", "err": float(err[a]),
                         "last_round_points": int(act[a].sum()),
                         "same_inliers": bool(torch.equal(inl_k[a], inl_p[a])),
                         "chi2_kernel": float(chi2_k[a][v[a]].sum()),
                         "chi2_plain": float(chi2_p[a][v[a]].sum())})
+                else:
+                    rest.append(a)
+        if rest and res.Tcw.device.type != "cpu":
+            cpu = pose_opt.pose_optimize(**{k: x.cpu() if torch.is_tensor(x) else x
+                                            for k, x in args.items()}, step_tol=0.0)
+            wide = pose_opt.pose_optimize(**{
+                k: x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+                for k, x in args.items()}, step_tol=0.0).Tcw
+
+            def dist(T, ref):
+                return (T.double().to(ref.device) - ref).abs().amax((-1, -2)).reshape(-1)
+
+            gap = dist(plain.Tcw, cpu.Tcw.double())
+            to_k, to_p, to_c = (dist(T, wide) for T in (res.Tcw, plain.Tcw, cpu.Tcw))
+            undetermined += [{"agent": a, "why": "rounding", "err": float(err[a]),
+                              "last_round_points": int(act[a].sum()),
+                              "plain_device_gap": float(gap[a]),
+                              "kernel_to_f64": float(to_k[a]),
+                              "plain_to_f64": max(float(to_p[a]), float(to_c[a]))}
+                             for a in rest if float(gap[a]) >= tcw_tol]
         free = {u["agent"] for u in undetermined}
         out.append({"schedule": (rounds, args["iters"]),
                     "n": int(valid.shape[-1]),

@@ -47,6 +47,14 @@ report every 5 frames, a push every 10) and global BA on (`run_swarm`).  `SwarmR
 frame under a `FrameClock` and keeps, per frame, each agent's path
 (cohort, staged or none), state, pose and keyframes, and every Kth
 cohort dispatch's stacked inputs and outputs.
+
+The CLIs run on on-disk trees written with `utils/png.py`:
+`write_euroc_tree` is tests/test_dress_rehearsal.py's fake EuRoC (the
+three sequences of config/mh123.yaml on one world, rendered through the
+settings' calibration), `write_tum_tree` a TUM RGB-D sequence (gray rgb/,
+16-bit depth/); `stepped_swarms` records, step by step, the swarm that a
+`swarm_map` CLI builds; `wire_log` records every Request encoded and
+decoded on the port's transport.
 """
 from __future__ import annotations
 
@@ -810,16 +818,19 @@ class SwarmRun:
         return rec
 
 
-def swarm_disagreements(a: list[SwarmStep], b: list[SwarmStep],
-                        tcw_tol: float = 1e-3) -> tuple[list[str], float]:
+def swarm_disagreements(a: list[SwarmStep], b: list[SwarmStep], tcw_tol: float = 1e-3,
+                        wider: dict[int, tuple[int, float]] | None = None
+                        ) -> tuple[list[str], float]:
     """Where two runs of one swarm sequence part, step by step: each
     agent's path and state must agree in every step, its pose within
     tcw_tol in the steps before either run's first merge (a merge's Sim3
     and rebase carry the runs' float32 differences into every pose) and
     while the agent's keyframes are the same in both (a keyframe that one
     run inserts and the other does not gives the two maps other local BA
-    windows).  Returns (the disagreements, the largest |dTcw| compared)."""
-    out, worst = [], 0.0
+    windows).  `wider` maps an agent to (a step, a tolerance): from that
+    step on, the agent's poses are held within that tolerance instead.
+    Returns (the disagreements, the largest |dTcw| compared)."""
+    out, worst, wider = [], 0.0, wider or {}
     merged, parted = False, set()
     for i, (x, y) in enumerate(zip(a, b)):
         if (x.paths, x.states) != (y.paths, y.states):
@@ -832,8 +843,9 @@ def swarm_disagreements(a: list[SwarmStep], b: list[SwarmStep],
             elif p is not None and not merged and j not in parted:
                 d = float(np.abs(p - q).max())
                 worst = max(worst, d)
-                if not d < tcw_tol:
-                    out.append(f"frame {i}: |dTcw| {d:.3g}")
+                start, tol = wider.get(j, (len(a), tcw_tol))
+                if not d < (tol if i >= start else tcw_tol):
+                    out.append(f"frame {i} agent {j}: |dTcw| {d:.3g}")
     return out, worst
 
 
@@ -921,3 +933,122 @@ def run_swarm(device, double_buffer: bool = False, n_frames: int | None = None,
         swarm.finish()
     run.draws, run.seqs = kept, seqs
     return run
+
+
+# -- the CLIs' on-disk trees ----------------------------------------------------
+EUROC_T0_NS = 1403636579763555584   # the first stamp of the fake EuRoC sequences
+EUROC_DT_NS = int(5e7)              # 20 Hz
+EUROC_SEQS = ("MH_01_easy", "MH_02_easy", "MH_03_medium")   # config/mh123.yaml's IMAGES
+
+
+def write_euroc_tree(root, settings, n_frames: int, n_points: int = 500, seed: int = 5) -> list:
+    """tests/test_dress_rehearsal.py's fake EuRoC under `root`: the three
+    sequences of config/mh123.yaml on one world (offset arc trajectories,
+    so the maps overlap), rendered with the calibration of `settings`
+    (lens distortion included) into <name>/mav0/cam0/data/<ns>.png.
+    Returns the rendered worlds (ground truth)."""
+    from pathlib import Path
+
+    from .utils import datasets, png
+
+    hw = (settings.camera.height, settings.camera.width)
+    worlds = []
+    for a, name in enumerate(EUROC_SEQS):
+        w = datasets.make_world(n_points=n_points, n_frames=n_frames, hw=hw, seed=seed,
+                                agent=a, motion="arc")
+        w.K = settings.camera.K.astype(np.float64)
+        w.dist = settings.camera.dist.astype(np.float32)
+        cam = Path(root) / name / "mav0" / "cam0" / "data"
+        cam.mkdir(parents=True)
+        for i in range(n_frames):
+            png.imwrite(cam / f"{EUROC_T0_NS + EUROC_DT_NS * i}.png", datasets.render_frame(w, i))
+        worlds.append(w)
+    return worlds
+
+
+def write_tum_tree(root, settings, n_frames: int, n_points: int = TRACKER_LANDMARKS,
+                   seed: int = TRACKER_SEED, depth_factor: float = 5000.0):
+    """A TUM RGB-D sequence under `root`: the first `n_frames` frames of the
+    tracker's world (its 80-frame trajectory) rendered with the
+    calibration of `settings`, as gray rgb/<ts>.png and 16-bit
+    depth/<ts>.png (metres x depth_factor, 0 where nothing was rendered)
+    11 ms after each image, with rgb.txt / depth.txt.  Returns the
+    rendered world."""
+    from pathlib import Path
+
+    from .utils import datasets, png
+
+    root = Path(root)
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    w = datasets.make_world(n_points=n_points, hw=(settings.camera.height, settings.camera.width),
+                            seed=seed)
+    w.K = settings.camera.K.astype(np.float64)
+    w.dist = settings.camera.dist.astype(np.float32)
+    rgb, dep = ["# color images"], ["# depth maps"]
+    for i in range(n_frames):
+        img, depth = datasets.render_frame(w, i, return_depth=True)
+        ts = 1305031102.175304 + i / settings.camera.fps
+        d16 = np.where(np.isfinite(depth), np.round(depth * depth_factor), 0)
+        png.imwrite(root / "rgb" / f"{ts:.6f}.png", img)
+        png.imwrite(root / "depth" / f"{ts + 0.011:.6f}.png",
+                    np.clip(d16, 0, 65535).astype(np.uint16))
+        rgb.append(f"{ts:.6f} rgb/{ts:.6f}.png")
+        dep.append(f"{ts + 0.011:.6f} depth/{ts + 0.011:.6f}.png")
+    (root / "rgb.txt").write_text("\n".join(rgb) + "\n")
+    (root / "depth.txt").write_text("\n".join(dep) + "\n")
+    return w
+
+
+class SteppedSwarm:
+    """A swarm built by a CLI, with `step` driven through a `SwarmRun`
+    (`.run`, which records every step); everything else is the swarm's."""
+
+    def __init__(self, swarm, clock: FrameClock | None = None):
+        self._swarm = swarm
+        self.run = SwarmRun(swarm, clock)
+
+    def step(self, images, ts):
+        self.run.step(images, ts)
+
+    def __getattr__(self, name):
+        return getattr(self._swarm, name)
+
+
+@contextlib.contextmanager
+def stepped_swarms(module, clock: FrameClock | None = None):
+    """Inside the block, `module.Swarm` (a `swarm_map` module of either
+    package) builds `SteppedSwarm`s, so `module.main` returns one."""
+    inner = module.Swarm
+    module.Swarm = lambda *a, **kw: SteppedSwarm(inner(*a, **kw), clock)
+    try:
+        yield
+    finally:
+        module.Swarm = inner
+
+
+@contextlib.contextmanager
+def wire_log():
+    """Every `sync.codec.Request` encoded (sent) and decoded (received)
+    inside the block, as {"sent": [(path, bytes)], "received": [...]}."""
+    from .sync.codec import Request
+
+    log = {"sent": [], "received": []}
+    saved = Request.__dict__["encode"], Request.__dict__["decode"]
+    enc, dec = Request.encode, Request.decode
+
+    def encode(self):
+        data = enc(self)
+        log["sent"].append((self.path, data))
+        return data
+
+    def decode(data):
+        req = dec(data)
+        log["received"].append((req.path, bytes(data)))
+        return req
+
+    Request.encode, Request.decode = encode, staticmethod(decode)
+    try:
+        yield log
+    finally:
+        Request.encode, Request.decode = saved

@@ -1,21 +1,139 @@
-"""Synthetic world renderer (numpy + scipy).
+"""Dataset loaders + synthetic world renderer (numpy + scipy).
 
-Copy of the synthetic part of swarmmap_tpu/utils/datasets.py, which the
-port cannot import on a machine without JAX (every module of the JAX
-package loads JAX first).  It renders a fixed 3D landmark field from a
-smooth camera trajectory, and gives arrays identical to the JAX package's
-for the same arguments, and `synthesize_sequence` wraps them as an
-`ImageSequence` with the ground truth attached.  With `n_dynamic > 0` a
-rigid flock of striped patches drifts through the near field (the moving
-objects of dynamic-object filtering, `core/dynamic.py`);
-`render_stereo_pair` renders a rectified stereo pair.  The file loaders
-(EuRoC, TUM, KITTI) are not ported yet.
+Copy of swarmmap_tpu/utils/datasets.py, which the port cannot import on a
+machine without JAX (every module of the JAX package loads JAX first).
+The real-format loaders mirror the reference's code/src/DataSetUtil.cc:
+  - EuRoC : image dir of <ns>.png + timestamp list file
+  - TUM   : dataset dir with rgb.txt ("ts path" lines)
+  - KITTI : sequence dir with times.txt + image_0/%06d.png
+and decode through `utils/png.py` (no cv2), to the arrays `cv2.imread`
+gives.  The synthetic world renders a fixed 3D landmark field from a
+smooth camera trajectory, with arrays identical to the JAX package's for
+the same arguments; `synthesize_sequence` wraps them as an `ImageSequence`
+with the ground truth attached.  With `n_dynamic > 0` a rigid flock of
+striped patches drifts through the near field (the moving objects of
+dynamic-object filtering, `core/dynamic.py`); `render_stereo_pair` renders
+a rectified stereo pair.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
+
+from . import png
+
+
+@dataclasses.dataclass
+class ImageSequence:
+    paths: list[str]           # empty for synthetic (frames held in memory)
+    timestamps: np.ndarray     # [N] float64 seconds
+    frames: np.ndarray | None = None  # [N,H,W] uint8 for synthetic
+    depth_paths: list[str] | None = None   # RGB-D (TUM depth pngs)
+    right_paths: list[str] | None = None   # stereo (KITTI image_1)
+    depth_factor: float = 5000.0            # TUM: 16-bit png / 5000 = m
+    world: SyntheticWorld | None = None     # ground truth of a synthetic one
+
+    def __len__(self) -> int:
+        return len(self.timestamps)
+
+    def read(self, i: int) -> np.ndarray:
+        """Return grayscale uint8 [H,W]."""
+        if self.frames is not None:
+            return self.frames[i]
+        return png.imread_gray(self.paths[i])
+
+    def read_depth(self, i: int) -> np.ndarray:
+        """Metric depth [H,W] float32 (0 = invalid)."""
+        return png.imread_unchanged(self.depth_paths[i]).astype(np.float32) / self.depth_factor
+
+    def read_right(self, i: int) -> np.ndarray:
+        return png.imread_gray(self.right_paths[i])
+
+
+def load_euroc(image_dir: str, times_file: str | None = None) -> ImageSequence:
+    """EuRoC cam dir of <ns>.png.  With no TIMES file, timestamps come
+    from the filenames themselves (they are nanosecond stamps)."""
+    if times_file and Path(times_file).exists():
+        lines = [ln.strip() for ln in Path(times_file).read_text().splitlines()
+                 if ln.strip()]
+        stamps = [float(ln) / 1e9 for ln in lines]
+        paths = [str(Path(image_dir) / f"{ln}.png") for ln in lines]
+    else:
+        files = sorted(Path(image_dir).glob("*.png"))
+        stamps = [float(f.stem) / 1e9 for f in files]
+        paths = [str(f) for f in files]
+    return ImageSequence(paths=paths, timestamps=np.asarray(stamps))
+
+
+def _read_tum_list(path: Path) -> list[tuple[float, str]]:
+    out = []
+    for ln in path.read_text().splitlines():
+        ln = ln.strip()
+        if not ln or ln.startswith("#"):
+            continue
+        ts, rel = ln.split()[:2]
+        out.append((float(ts), rel))
+    return out
+
+
+def load_tum(dataset_dir: str, with_depth: bool = False,
+             depth_factor: float = 5000.0,
+             max_dt: float = 0.02) -> ImageSequence:
+    """TUM RGB-D dir with rgb.txt (+ depth.txt for the rgbd mode; frames
+    are associated by nearest timestamp within max_dt, the standard
+    associate.py rule)."""
+    base = Path(dataset_dir)
+    rgb = _read_tum_list(base / "rgb.txt")
+    if not with_depth:
+        return ImageSequence(
+            paths=[str(base / rel) for _, rel in rgb],
+            timestamps=np.asarray([ts for ts, _ in rgb]),
+        )
+    depth = _read_tum_list(base / "depth.txt")
+    d_ts = np.asarray([ts for ts, _ in depth])
+    stamps, paths, dpaths = [], [], []
+    for ts, rel in rgb:
+        j = int(np.argmin(np.abs(d_ts - ts)))
+        if abs(d_ts[j] - ts) <= max_dt:
+            stamps.append(ts)
+            paths.append(str(base / rel))
+            dpaths.append(str(base / depth[j][1]))
+    return ImageSequence(paths=paths, timestamps=np.asarray(stamps),
+                         depth_paths=dpaths, depth_factor=depth_factor)
+
+
+def load_kitti(sequence_dir: str, with_right: bool = False) -> ImageSequence:
+    seq = Path(sequence_dir)
+    stamps = [float(x) for x in (seq / "times.txt").read_text().split()]
+    paths = [str(seq / "image_0" / f"{i:06d}.png") for i in range(len(stamps))]
+    right = (
+        [str(seq / "image_1" / f"{i:06d}.png") for i in range(len(stamps))]
+        if with_right else None
+    )
+    return ImageSequence(paths=paths, timestamps=np.asarray(stamps),
+                         right_paths=right)
+
+
+def load_sequence(dtype: str, image_dir: str, times_file: str | None = None,
+                  sensor: str = "mono",
+                  depth_factor: float = 5000.0) -> ImageSequence:
+    if dtype == "euroc":
+        return load_euroc(image_dir, times_file)
+    if dtype == "tum":
+        return load_tum(image_dir, with_depth=(sensor == "rgbd"),
+                        depth_factor=depth_factor)
+    if dtype == "kitti":
+        return load_kitti(image_dir, with_right=(sensor == "stereo"))
+    if dtype == "synthetic":
+        return synthesize_sequence()
+    raise ValueError(f"unknown dataset type {dtype!r}")
+
+
+# ---------------------------------------------------------------------------
+# Synthetic world
+# ---------------------------------------------------------------------------
 
 
 def _look_rotation(forward: np.ndarray, up: np.ndarray) -> np.ndarray:
@@ -264,22 +382,6 @@ def render_stereo_pair(world: SyntheticWorld, i: int, baseline: float = 0.12):
     return left, right
 
 
-@dataclasses.dataclass
-class ImageSequence:
-    """A sequence of grayscale frames held in memory (the synthetic part
-    of the JAX package's ImageSequence)."""
-    timestamps: np.ndarray     # [N] float64 seconds
-    frames: np.ndarray         # [N,H,W] uint8
-    world: SyntheticWorld | None = None  # ground truth
-
-    def __len__(self) -> int:
-        return len(self.timestamps)
-
-    def read(self, i: int) -> np.ndarray:
-        """Return grayscale uint8 [H,W]."""
-        return self.frames[i]
-
-
 def synthesize_sequence(
     n_frames: int = 80,
     hw: tuple[int, int] = (480, 640),
@@ -298,4 +400,5 @@ def synthesize_sequence(
                        agent=agent, motion=motion, focal=focal, dist=dist,
                        n_dynamic=n_dynamic)
     frames = np.stack([render_frame(world, i) for i in range(n_frames)])
-    return ImageSequence(timestamps=np.arange(n_frames) / fps, frames=frames, world=world)
+    return ImageSequence(paths=[], timestamps=np.arange(n_frames) / fps, frames=frames,
+                         world=world)

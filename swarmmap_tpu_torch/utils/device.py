@@ -113,6 +113,18 @@ def fetch(*trees):
     return fetch_async(*trees).result()
 
 
+def fetch_np(*trees):
+    """Like fetch(), but guarantees np.ndarray leaves (one fetch)."""
+    got = fetch(*trees)
+
+    def as_np(t):
+        return _map(np.asarray, t, leaf=(np.ndarray, np.generic, int, float))
+
+    if len(trees) == 1:
+        return as_np(got)
+    return tuple(as_np(g) for g in got)
+
+
 def fetch_async(*trees) -> HostCopy:
     """Enqueue the device->host copies of `fetch` now and return at once;
     the handle's `result()` waits for them and is accounted as the fetch

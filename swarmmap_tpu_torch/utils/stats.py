@@ -2,9 +2,9 @@
 
 Port of swarmmap_tpu/utils/stats.py with the same counter names
 (`rpc_fetch`, `rpc_h2d`, `fetch_wall`, `fetch_wall_main`), so a bench that
-reads `STATS.summary()` means the same thing on either package, and of
-`measure_rpc_floor`, the round-trip probe behind the bench's
-`swarm_rpc_floor_ms`.
+reads `STATS.summary()` (or `save_csv`'s file) means the same thing on
+either package, and of `measure_rpc_floor`, the round-trip probe behind
+the bench's `swarm_rpc_floor_ms`.
 """
 from __future__ import annotations
 
@@ -60,6 +60,17 @@ class StageStats:
                 f"{d.get('max_ms', 0):>9}"
             )
         return "\n".join(lines)
+
+    def save_csv(self, path):
+        import csv
+
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["stage", "count", "total_s", "mean_ms", "p50_ms", "max_ms"])
+            for name, d in self.summary().items():
+                w.writerow([name, d.get("count", 0), d.get("total_s", 0),
+                            d.get("mean_ms", 0), d.get("p50_ms", 0),
+                            d.get("max_ms", 0)])
 
 
 STATS = StageStats()

@@ -1,9 +1,9 @@
 """Trajectory output and ATE evaluation, and rotation <-> quaternion.
 
-Copy of swarmmap_tpu/utils/trajectory.py's `rot_to_quat`, `quat_to_rot`
-(`MapStore.set_transform` needs them), `save_tum` (the reference's TUM
-writer, System::SaveKeyFrameTrajectoryTUM) and the evo-equivalent
-`umeyama_align` + `ate_rmse`.
+Copy of swarmmap_tpu/utils/trajectory.py: `rot_to_quat`, `quat_to_rot`,
+the reference's TUM and KITTI formats (`save_tum`, `load_tum`,
+`save_kitti`; System::SaveKeyFrameTrajectoryTUM, SaveTrajectoryKITTI) and
+the evo-equivalent `umeyama_align` + `ate_rmse`.
 """
 from __future__ import annotations
 
@@ -61,6 +61,26 @@ def save_tum(path: str | Path, timestamps: np.ndarray, poses_wc: np.ndarray) -> 
             f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
             f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}"
         )
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def load_tum(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
+    stamps, poses = [], []
+    for ln in Path(path).read_text().splitlines():
+        ln = ln.strip()
+        if not ln or ln.startswith("#"):
+            continue
+        vals = [float(x) for x in ln.split()]
+        stamps.append(vals[0])
+        T = np.eye(4)
+        T[:3, :3] = quat_to_rot(np.asarray(vals[4:8]))
+        T[:3, 3] = vals[1:4]
+        poses.append(T)
+    return np.asarray(stamps), np.asarray(poses)
+
+
+def save_kitti(path: str | Path, poses_wc: np.ndarray) -> None:
+    lines = [" ".join(f"{v:.6e}" for v in T[:3].reshape(-1)) for T in poses_wc]
     Path(path).write_text("\n".join(lines) + "\n")
 
 

@@ -626,3 +626,73 @@ def test_stereo_on_gpu_matches_cpu(cuda):
     assert compare_records(cpu, card) == []
     assert [r.state for r in card] == ["OK"] * 5
     assert [r.counts["pose_lm"] for r in card[1:]] == [2] * 4
+
+
+# a small fake EuRoC: 240x320, EuRoC cam0's distortion, 400 features, 4 levels
+CLI_SETTINGS = ("%YAML:1.0\nCamera.fx: 230.0\nCamera.fy: 230.0\nCamera.cx: 160.0\n"
+                "Camera.cy: 120.0\nCamera.k1: -0.28340811\nCamera.k2: 0.07395907\n"
+                "Camera.p1: 0.00019359\nCamera.p2: 1.76187114e-05\nCamera.fps: 20.0\n"
+                "Camera.width: 320\nCamera.height: 240\nORBextractor.nFeatures: 400\n"
+                "ORBextractor.nLevels: 4\n")
+# Where the card's and the CPU's runs of the CLI tree part: agent 0 loses
+# its first map at frame 2 and initialises again at frame 4, and that
+# map's first BA (ill-conditioned, ROADMAP queue 3) parts the devices by
+# 5.24e-3 there and by 7.6e-4 to 4.15e-3 in frames 5-11 (H100, two runs
+# alike); agents 1 and 2 stay within 1.3e-5.  From frame 4 on agent 0's
+# poses are held at 1e-2; every other pose at
+# test_swarm_on_gpu_matches_cpu's 2e-3.
+CLI_TCW_TOL = 2e-3
+CLI_REINIT = {0: (4, 1e-2)}
+
+
+def test_swarm_map_cli_on_gpu_matches_cpu(cuda, tmp_path, monkeypatch):
+    """`swarm_map -d <tree> -c 3` on a 12-frame fake EuRoC (written with
+    utils/png.py) on the card by default, and again with --device cpu on
+    the card's two-view draws, one clock: held as
+    test_swarm_on_gpu_matches_cpu holds the swarm (the same path and state
+    per frame and agent, poses within 2e-3 before a merge and while an
+    agent's keyframes agree, every cohort dispatch one launch), but for
+    agent 0's poses after its re-initialisation (CLI_REINIT)."""
+    from swarmmap_tpu_torch import cells
+    from swarmmap_tpu_torch.cli import swarm_map
+    from swarmmap_tpu_torch.utils.config import Settings
+
+    (tmp_path / "s.yaml").write_text(CLI_SETTINGS)
+    cells.write_euroc_tree(tmp_path / "data", Settings.load(tmp_path / "s.yaml"), 12, n_points=350)
+    cfg = tmp_path / "ds.yaml"
+    cfg.write_text(f"%YAML:1.0\nTYPE: 'euroc'\nSETTING: '{tmp_path / 's.yaml'}'\nIMAGES: ["
+                   + ", ".join(f"'/{n}/mav0/cam0/data'" for n in cells.EUROC_SEQS) + "]\n")
+    monkeypatch.setenv("SWARMMAP_DATA", str(tmp_path / "data"))
+    argv = ["-d", str(cfg), "-c", "3", "-l", "warning"]
+    clock = cells.FrameClock()
+    with clock, cells.stepped_swarms(swarm_map, clock), cells.recorded_draws("twoview") as draws:
+        card = swarm_map.main(argv + ["-o", str(tmp_path / "card")])
+        torch.cuda.synchronize()
+    with clock, cells.stepped_swarms(swarm_map, clock), cells.replayed_draws(draws, "twoview"):
+        cpu = swarm_map.main(argv + ["-o", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert card.device.type == "cuda" and cpu.device.type == "cpu"
+    assert cells.swarm_disagreements(card.run.steps, cpu.run.steps, CLI_TCW_TOL,
+                                     CLI_REINIT)[0] == []
+    assert any(all(p == "cohort" for p in st.paths) for st in card.run.steps)
+    assert card.run.dispatch_launches == card.run.n_dispatches > 0
+    assert (tmp_path / "card" / "map-server-0.bin").exists()
+
+
+def test_cli_raises_without_a_visible_card(tmp_path):
+    """With no card visible (CUDA_VISIBLE_DEVICES empty) and no --device, a
+    CLI raises default_device's error: no fallback to the CPU.  Runs
+    without a card too."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(repo), os.environ.get("PYTHONPATH")])))
+    code = ("from swarmmap_tpu_torch.cli import mono; "
+            f"mono.main(['--synthetic', '--frames', '2', '-o', {str(tmp_path / 'out')!r}])")
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr[-2000:]
+    assert not (tmp_path / "out").exists()

@@ -186,17 +186,22 @@ def _env():
 
 
 def test_port_never_reaches_jax():
-    """Guard: with jax, jaxlib, the JAX package, PyYAML, msgpack and cv2
-    made unimportable, the port imports (its sync layer, SwarmAgent,
-    Swarm, bench, stereo, dynamic filtering and every server module too),
-    runs a small tracking step on its plain path, tracks three RGB-D
-    frames with its tracker, round-trips its map through the codec, serves
-    it as one push to a scheduler, builds and finishes a 2-agent Swarm,
-    tracks two stereo frames and segments a keyframe with the shipped
-    segmenter."""
+    """Guard: with jax, jaxlib, the JAX package, PyYAML, msgpack, cv2,
+    websockets and matplotlib made unimportable (the card's machine has
+    none of them), the port imports (its sync layer, SwarmAgent, Swarm,
+    bench, stereo, dynamic filtering, every server module, the CLIs, the
+    network and the viewers too), runs a small tracking step on its plain
+    path, tracks three RGB-D frames with its tracker, round-trips its map
+    through the codec, serves it as one push to a scheduler, builds and
+    finishes a 2-agent Swarm, tracks two stereo frames, segments a
+    keyframe with the shipped segmenter, reads config/settings/EuRoC.yaml,
+    runs `swarm_map -d` on a tiny EuRoC tree written by its PNG writer,
+    makes a websocket round trip and says what the PNG map viewer
+    lacks."""
     code = (
         "import sys\n"
-        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack', 'cv2')\n"
+        "blocked = ('jax', 'jaxlib', 'swarmmap_tpu', 'yaml', 'msgpack', 'cv2', 'websockets',"
+        " 'matplotlib')\n"
         "for m in [m for m in sys.modules if m.split('.')[0] in blocked]:\n"
         "    del sys.modules[m]\n"
         "for m in blocked:\n"
@@ -252,6 +257,41 @@ def test_port_never_reaches_jax():
         "t.grab(img, 0.0, depth_image=d)\n"
         "assert isinstance(t.dynamic.extractor.segment_fn, dynamic.ConvSegmenter)\n"
         "assert t.dynamic.votes.stat.sum() > 0\n"
+        "import os, pathlib, tempfile\n"
+        "from swarmmap_tpu_torch.cli import common, mono, relocalizer, swarm_client, swarm_map,"
+        " swarm_server\n"
+        "from swarmmap_tpu_torch.net import client_service, server_service, ws_wire, wsrpc\n"
+        "from swarmmap_tpu_torch.viz import html_viewer, live, viewer\n"
+        "from swarmmap_tpu_torch.utils import png, profiling, timer, trajectory\n"
+        "from swarmmap_tpu_torch import cells\n"
+        "assert abs(config.Settings.load('config/settings/EuRoC.yaml').camera.k1 + 0.28340811)"
+        " < 1e-9\n"
+        "tmp = pathlib.Path(tempfile.mkdtemp())\n"
+        "(tmp / 'mini.yaml').write_text('%YAML:1.0\\nCamera.fx: 115.0\\nCamera.fy: 115.0\\n'"
+        " 'Camera.cx: 80.0\\nCamera.cy: 60.0\\nCamera.fps: 20.0\\nCamera.width: 160\\n'"
+        " 'Camera.height: 120\\nORBextractor.nFeatures: 200\\nORBextractor.nLevels: 2\\n')\n"
+        "cells.write_euroc_tree(tmp / 'data', config.Settings.load(tmp / 'mini.yaml'), 3,"
+        " n_points=120)\n"
+        "(tmp / 'ds.yaml').write_text(f\"%YAML:1.0\\nTYPE: 'euroc'\\nSETTING: '{tmp}/mini.yaml'\\n\""
+        " \"IMAGES: ['/MH_01_easy/mav0/cam0/data']\\n\")\n"
+        "os.environ['SWARMMAP_DATA'] = str(tmp / 'data')\n"
+        "sw = swarm_map.main(['-d', str(tmp / 'ds.yaml'), '-c', '1', '-o', str(tmp / 'out'),"
+        " '-l', 'warning', '--device', 'cpu'])\n"
+        "assert sw.frame_count == 3 and (tmp / 'out' / 'map-server-0.bin').exists()\n"
+        "import socket\n"
+        "with socket.socket() as sock:\n"
+        "    sock.bind(('127.0.0.1', 0))\n"
+        "    port = sock.getsockname()[1]\n"
+        "srv = wsrpc.WsServer('127.0.0.1', port, lambda r, reply: reply(r))\n"
+        "srv.start()\n"
+        "assert wsrpc.ws_round_trip('127.0.0.1', port, codec.Request(1, 0, 'Echo', b'x')).body"
+        " == b'x'\n"
+        "srv.stop()\n"
+        "try:\n"
+        "    viewer.draw_map(sw.mediators[0].store, tmp / 'm.png')\n"
+        "    raise AssertionError('draw_map ran without matplotlib')\n"
+        "except ModuleNotFoundError as e:\n"
+        "    assert 'export_html' in str(e), e\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in blocked"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
