@@ -85,6 +85,19 @@ one it exits non-zero before doing anything.  The paths:
   every kept cohort dispatch row by row to the per-agent step, and the
   first 10 frames to the CPU on the card's draws; with per-frame step ms
   by class, the STATS stages and one profiled step;
+- multi-device (`parallel/`, `phase_mesh`) over device lists of repeated
+  cuda:0 entries: the multi-agent step of 8 agents (`realistic_track_inputs`
+  seeds 0-7, full width) over agent meshes of 8 and 4 entries against the
+  plain step (integers and the overlap hint equal, Tcw within 1e-5, one
+  pose_lm launch per shard, every launch held to the plain version); the
+  server's global BA over obs meshes of 8 and 4 entries against the
+  one-device CG on the dry run's two-map group and a 16-camera problem
+  above the loop closer's 4,096-observation gate (Tcw 2e-3, points 5e-3,
+  inliers 0.99, two runs the same bits), and the group GBA through
+  MapManager; and a Swarm of 8 agents on tests/test_swarm.py's world at
+  full width over 4 entries (16 frames, GBA on), held to
+  test_mesh_sharded_swarm_with_merge's bars; one card proves the sharded
+  code right and deterministic, not its scaling across cards;
 - the entry points (`swarmmap_tpu_torch/cli/`, `phase_cli`), through their
   `main(argv)` on trees written with `utils/png.py`: `swarm_map -d
   config/mh123.yaml -c 3` on a fake EuRoC at full width (45 frames a
@@ -1830,6 +1843,286 @@ def phase_swarm(dev: torch.device) -> dict:
     return out
 
 
+MESH_STEP_SHARDS = (8, 4)     # agent-mesh entries of cuda:0 for the 8 agents' step
+MESH_STEPS = 5                # warm steps of each sharded step, every launch held
+MESH_TCW_TOL = 1e-5           # the sharded step's Tcw against the plain step's
+# MULTICHIP_r05.json: the JAX package's dry run on 8 virtual CPU devices
+# (for reference only; no bar)
+MESH_JAX_INLIERS = [105, 106, 123, 105, 116, 101, 127, 105]
+MESH_BA_SHARDS = (8, 4)       # obs-mesh entries of cuda:0
+MESH_BA_BARS = {"Tcw": 2e-3, "pts": 5e-3, "agree": 0.99}   # tests/test_ba.py:149-185
+MESH_SWARM_DEVICES = 4        # the mesh Swarm's device list: 8 agents, 2 per shard
+# frames of the mesh Swarm: the JAX test's 24 cut to 16 (two syncs, the
+# second merging all 8 maps) so that phase_mesh stays near 100 s; its
+# sync frames take 17-21 s on one card (8 pushes, GBA sharded over 4)
+MESH_SWARM_FRAMES = 16
+MESH_SWARM_TRACKED = (0.5, 6)  # tests/test_swarm.py: 6 of 8 agents track half their frames
+MESH_PERM_SEED = 0            # the permutation of the observations in `_permuted_obs`
+
+
+def _mesh_step(dev: torch.device) -> dict:
+    """(a) The multi-agent step of 8 agents (`cells.mesh_step_inputs`) over
+    agent meshes of MESH_STEP_SHARDS entries of `dev`, against the plain
+    step on the same inputs: n_inliers, match_mp and the [8,8] overlap
+    equal, the total the sum, Tcw within MESH_TCW_TOL; MESH_STEPS warm
+    steps each with the counts set to 0 just before and read just after
+    (one pose_lm launch per shard), every launch held to the plain
+    version; ms per step (CUDA events) beside the one- and two-agent
+    batched step's."""
+    from swarmmap_tpu_torch import cells, pipeline
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.cells import STEP_KW
+    from swarmmap_tpu_torch.parallel.mesh import agent_mesh
+
+    inp = cells.mesh_step_inputs(dev)
+    plain = pipeline.make_multi_agent_step(**STEP_KW)
+    ref, ref_overlap, ref_total = plain(inp)
+    n_agents = ref.Tcw.shape[0]
+    out, failed = {}, []
+    times = {"plain_8": cuda_ms(lambda: plain(inp), n=10)}
+    for a in (1, 2):
+        sub = pipeline.TrackInputs(*(x[:a] for x in inp))
+        times[f"batched_step_{a}"] = cuda_ms(
+            lambda sub=sub: pipeline.batched_tracking_step(sub, **STEP_KW), n=10)
+    for n in MESH_STEP_SHARDS:
+        name = f"mesh_step_{n}"
+        step = pipeline.make_multi_agent_step(**STEP_KW, mesh=agent_mesh(devices=[dev] * n))
+        step(inp)
+        _reset_counts()
+        with record_pose_calls() as calls:
+            for _ in range(MESH_STEPS):
+                got, overlap, total = step(inp)
+        launches, _ = _read_counts()
+        err = float((got.Tcw - ref.Tcw).abs().max())
+        inl = got.n_inliers.tolist()
+        log(f"{name}: {n_agents} agents over {n} entries of {dev}: per-agent inliers {inl} "
+            f"(JAX on 8 virtual CPU devices {MESH_JAX_INLIERS}), total {int(total)}, "
+            f"max|dTcw| to the plain step {err:.3g}, pose_lm launches {launches} in "
+            f"{MESH_STEPS} steps")
+        if not (torch.equal(got.n_inliers, ref.n_inliers) and torch.equal(got.match_mp, ref.match_mp)
+                and torch.equal(overlap, ref_overlap) and int(total) == int(ref_total) == sum(inl)):
+            failed.append(f"{name}: integer outputs differ from the plain step "
+                          f"({inl} vs {ref.n_inliers.tolist()}, total {int(total)} vs "
+                          f"{int(ref_total)})")
+        if not err < MESH_TCW_TOL or not min(inl) >= MIN_INLIERS:
+            failed.append(f"{name}: |dTcw| {err:.3g}, inliers {inl}")
+        if launches != n * MESH_STEPS:
+            failed.append(f"{name}: {launches} pose_lm launches in {MESH_STEPS} steps over "
+                          f"{n} shards")
+        times[name] = cuda_ms(lambda: step(inp), n=10)
+        out[name] = {"steps": MESH_STEPS, "launches": launches,
+                     "launches_per_step": launches / MESH_STEPS,
+                     "max_abs_err": _hold_to_plain(name, calls), "ms": times[name]}
+    log("mesh step ms per step (median, CUDA events): " + json.dumps(times))
+    log(f"  overlap [8,8]: {ref_overlap.tolist()}")
+    if failed:
+        fail("; ".join(failed))
+    return out
+
+
+def _mesh_ba(dev: torch.device) -> dict:
+    """(b) The server's global BA observation-sharded over obs meshes of
+    MESH_BA_SHARDS entries of `dev`, against the one-device CG (cg_iters
+    32) on two problems: the dry run's two-map group (1,909 observations
+    in a 2,048 bucket) and `cells.ba_problem` (above the loop closer's
+    4,096-observation gate); held to MESH_BA_BARS on the valid cameras,
+    points and observations, two sharded runs to the same bits; ms per
+    call.  Then the dry run's group GBA through MapManager over 8 entries:
+    the duplicate copies within 1e-3."""
+    from swarmmap_tpu_torch import cells
+    from swarmmap_tpu_torch.cells import timed_call
+    from swarmmap_tpu_torch.ops import ba
+    from swarmmap_tpu_torch.parallel import dryrun
+    from swarmmap_tpu_torch.parallel.mesh import obs_mesh
+
+    mgr = dryrun.two_map_group(dev)[0]
+    problems, inner = {}, ba.build_padded_problem
+    ba.build_padded_problem = lambda *a, **k: problems.setdefault("two_map", inner(*a, **k))
+    try:
+        mgr.group_global_ba(0, iters=4)
+    finally:
+        ba.build_padded_problem = inner
+    problems["arc"] = cells.ba_problem(dev)[0]
+    out, failed = {}, []
+    for name, p in problems.items():
+        C, P, O = (int(x.sum()) for x in (p.cam_valid, p.pt_valid, p.obs_valid))
+        runs = [timed_call(lambda: ba.bundle_adjust(p, mode="cg", cg_iters=32)) for _ in range(2)]
+        ref = ba.bundle_adjust(p, mode="cg", cg_iters=32)
+        row = {"real": [C, P, O], "bucket": [p.Tcw.shape[0], p.pts.shape[0], p.obs_cam.shape[0]],
+               "one_device_ms": runs[-1][0]}
+        for n in MESH_BA_SHARDS:
+            m = obs_mesh(devices=[dev] * n)
+            res = []
+            ms = [timed_call(lambda: res.append(ba.bundle_adjust_sharded(p, m, cg_iters=32)))[0]
+                  for _ in range(2)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(getattr(res[0], f), getattr(res[1], f))
+                       for f in ba.BAResult._fields)
+            d_T = float((res[0].Tcw[:C] - ref.Tcw[:C]).abs().max())
+            d_p = float((res[0].pts[:P] - ref.pts[:P]).abs().max())
+            agree = float((res[0].obs_inlier == ref.obs_inlier).float().mean())
+            row[f"sharded_{n}"] = {"ms": ms, "max_dTcw": d_T, "max_dpts": d_p,
+                                   "inlier_agreement": agree, "same_bits": same}
+            if not (d_T < MESH_BA_BARS["Tcw"] and d_p < MESH_BA_BARS["pts"]
+                    and agree > MESH_BA_BARS["agree"] and same):
+                failed.append(f"{name} over {n}: " + json.dumps(row[f"sharded_{n}"]))
+        log(f"mesh BA {name}: " + json.dumps(row))
+        out[name] = row
+    out["group_gap"] = dryrun.dryrun_group_gba(8, [dev] * 8)
+    if failed:
+        fail("sharded BA: " + "; ".join(failed))
+    return {"mesh_ba": out}
+
+
+def _permuted_obs(p):
+    """`p` with its valid observations in another order (a fixed
+    permutation, MESH_PERM_SEED): the same problem, summed in another
+    order by the one-device BA."""
+    from swarmmap_tpu_torch.ops import ba
+
+    g = torch.Generator().manual_seed(MESH_PERM_SEED)
+    valid = torch.nonzero(p.obs_valid.cpu()).flatten()
+    order = torch.cat([valid[torch.randperm(len(valid), generator=g)],
+                       torch.nonzero(~p.obs_valid.cpu()).flatten()]).to(p.obs_valid.device)
+    return p._replace(**{f: getattr(p, f)[order] for f in ba.BAProblem._fields
+                         if f.startswith("obs_")})
+
+
+def _hold_joint_gba(kept: dict) -> tuple[dict, list]:
+    """The largest sharded BA of the mesh Swarm's run (the finish's joint
+    GBA), as the server ran it, against the one-device CG
+    (`bundle_adjust(mode="cg")`) with the same arguments: Tcw within
+    MESH_BA_BARS["Tcw"] on the valid cameras, inlier agreement above
+    MESH_BA_BARS["agree"], a second sharded run to the same bits, and
+    points within MESH_BA_BARS["pts"], or, where the one-device CG itself
+    parts by more when only the order of its observations changes
+    (`_permuted_obs`), within that spread; ms per call."""
+    from swarmmap_tpu_torch.cells import timed_call
+    from swarmmap_tpu_torch.ops import ba
+
+    p, mesh, kw, res = kept["p"], kept["mesh"], kept["kw"], kept["res"]
+    cv, pv = p.cam_valid, p.pt_valid
+    got = {}
+    ms = {"sharded": timed_call(lambda: got.setdefault(
+              "again", ba.bundle_adjust_sharded(p, mesh, **kw)))[0],
+          "one_device": timed_call(lambda: got.setdefault(
+              "ref", ba.bundle_adjust(p, mode="cg", **kw)))[0]}
+    ref, perm = got["ref"], ba.bundle_adjust(_permuted_obs(p), mode="cg", **kw)
+
+    def gaps(x):
+        return (float((x.Tcw[cv] - ref.Tcw[cv]).abs().max()),
+                float((x.pts[pv] - ref.pts[pv]).abs().max()))
+
+    d_T, d_p = gaps(res)
+    perm_T, perm_p = gaps(perm)
+    agree = float((res.obs_inlier == ref.obs_inlier).float().mean())
+    same = all(torch.equal(getattr(res, f), getattr(got["again"], f)) for f in ba.BAResult._fields)
+    pts_bar = max(MESH_BA_BARS["pts"], perm_p)
+    row = {"real": [int(x.sum()) for x in (cv, pv, p.obs_valid)],
+           "bucket": [p.Tcw.shape[0], p.pts.shape[0], p.obs_cam.shape[0]],
+           "shards": mesh.size(), "kw": kw, "ms": ms, "max_dTcw": d_T, "max_dpts": d_p,
+           "permuted_one_device": {"max_dTcw": perm_T, "max_dpts": perm_p},
+           "pts_bar": pts_bar, "inlier_agreement": agree, "same_bits": same}
+    bad = [] if (d_T < MESH_BA_BARS["Tcw"] and d_p < pts_bar
+                 and agree > MESH_BA_BARS["agree"] and same) else [
+        "joint GBA against the one-device CG: " + json.dumps(row)]
+    return row, bad
+
+
+def _mesh_swarm(dev: torch.device) -> dict:
+    """(c) The mesh Swarm (`cells.run_mesh_swarm`): 8 agents at full width
+    over a list of MESH_SWARM_DEVICES entries of `dev` (2 agents a shard,
+    global BA on, MESH_SWARM_FRAMES frames), with the counts set to 0 just
+    before and read just
+    after; held to tests/test_swarm.py::test_mesh_sharded_swarm_with_merge's
+    bars, one pose_lm launch per shard and cohort dispatch, and every
+    launch to the plain version; per-step ms by class and the STATS
+    stages.  The largest sharded BA of the run is kept and held to the
+    one-device CG (`_hold_joint_gba`)."""
+    from swarmmap_tpu_torch import cells
+    from swarmmap_tpu_torch.bench_pose import record_pose_calls
+    from swarmmap_tpu_torch.ops import ba
+    from swarmmap_tpu_torch.utils.stats import STATS
+
+    kept, inner = {}, ba.bundle_adjust_sharded
+
+    def keep_largest(p, mesh, **kw):
+        res = inner(p, mesh, **kw)
+        if p.obs_cam.shape[0] >= kept.get("bucket", 0):
+            kept.update(bucket=p.obs_cam.shape[0], p=p, mesh=mesh, kw=kw, res=res)
+        return res
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    ba.bundle_adjust_sharded = keep_largest
+    try:
+        with record_pose_calls() as calls:
+            run = cells.run_mesh_swarm(dev, [dev] * MESH_SWARM_DEVICES,
+                                       n_frames=MESH_SWARM_FRAMES)
+    finally:
+        ba.bundle_adjust_sharded = inner
+    launches, counts = _read_counts()
+    seconds = time.perf_counter() - t0
+    sw, steps, n = run.swarm, run.steps, len(run.steps)
+    tracked = [a.frames_tracked for a in sw.agents]
+    per_dispatch = run.dispatch_launches / max(run.n_dispatches, 1)
+    hinted = sum(bool(m.overlap_hint) for m in sw.mediators)
+    summary = {
+        "frames": n, "seconds": seconds, "launches": launches, "mesh": sw.mesh.size(),
+        "gba_mesh": sw.gba_mesh.size(), "tracked": tracked,
+        "fused_cohort_dispatches": sw.fused_cohort_dispatches,
+        "launches_per_cohort_dispatch": per_dispatch, "mediators_hinted": hinted,
+        "overlap_hint": None if sw.overlap_hint is None else sw.overlap_hint.tolist(),
+        "groups": [sorted(g) for g in sw.merged_groups()],
+        "step_ms_by_class": {c: _stat([st.ms for st in steps[1:] if _swarm_class(st) == c])
+                             for c in ("cohort", "staged", "keyframe", "sync")},
+        "stages_ms": {k: _stat([1e3 * x for x in STATS.times.get(k, [])]) for k in SWARM_STAGES},
+        "rpc_fetch": counts.get("rpc_fetch", 0), "rpc_dispatch": counts.get("rpc_dispatch", 0),
+    }
+    log("mesh_swarm: " + json.dumps(summary))
+    log(f"  mesh_swarm step ms per frame: {[round(st.ms, 1) for st in steps]}")
+    log(f"  mesh_swarm classes per frame: {[_swarm_class(st)[0] for st in steps]}")
+    bad = []
+    if sw.mesh.size() != MESH_SWARM_DEVICES:
+        bad.append(f"an agent mesh of {sw.mesh.size()}")
+    share, agents = MESH_SWARM_TRACKED
+    if not sum(t > share * n for t in tracked) >= agents:
+        bad.append(f"frames tracked {tracked} of {n}")
+    if not sw.fused_cohort_dispatches > 0 or per_dispatch != MESH_SWARM_DEVICES:
+        bad.append(f"{sw.fused_cohort_dispatches} cohort dispatches, {per_dispatch} pose_lm "
+                   f"launches per dispatch")
+    if sw.overlap_hint is None or sw.overlap_hint.shape != (len(sw.agents),) * 2 or not hinted:
+        bad.append(f"the overlap hint reached {hinted} mediators")
+    if max(len(g) for g in sw.merged_groups()) < 2:
+        bad.append(f"no merge: {sw.merged_groups()}")
+    if not kept:
+        bad.append("no sharded BA ran")
+    else:
+        summary["joint_gba"], gba_bad = _hold_joint_gba(kept)
+        log("  mesh_swarm joint GBA: " + json.dumps(summary["joint_gba"]))
+        bad += gba_bad
+    if bad:
+        fail("mesh_swarm: " + "; ".join(bad))
+    return {"mesh_swarm": {"frames": n * len(sw.agents), "launches": launches,
+                           "launches_per_frame": launches / (n * len(sw.agents)),
+                           "launches_per_cohort_dispatch": per_dispatch,
+                           "max_abs_err": _hold_to_plain("mesh_swarm", calls),
+                           "summary": summary}}
+
+
+def phase_mesh(dev: torch.device) -> dict:
+    """Multi-device paths over device lists of repeated `dev` entries: (a)
+    the agent-sharded step, (b) the observation-sharded global BA, (c) the
+    mesh Swarm.  One card shows that the sharded code is right and
+    deterministic, not how it scales across cards."""
+    out = {}
+    for part in (_mesh_step, _mesh_ba, _mesh_swarm):
+        t0 = time.perf_counter()
+        out.update(part(dev))
+        log(f"  {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 CLI_FRAMES = 45           # per EuRoC sequence: the 40-frame push fires once before finish
 CLI_TUM_FRAMES = 25       # the RGB-D sequence (TUM1's 480x640)
 CLI_TRACKED = 0.6         # tests/test_dress_rehearsal.py: frames tracked per agent
@@ -2256,18 +2549,27 @@ def main() -> None:
         tracker_paths[name] = {k: run[k] for k in (
             "frames", "launches", "launches_per_frame", "max_abs_err")}
     log(f"swarm phase: {time.perf_counter() - t_swarm:.1f} s")
+    t_mesh = time.perf_counter()
+    mesh = phase_mesh(dev)
+    mesh_paths = {k: {f: v[f] for f in ("steps", "launches", "launches_per_step", "max_abs_err")}
+                  for k, v in mesh.items() if k.startswith("mesh_step_")}
+    mesh_paths["mesh_swarm"] = {k: mesh["mesh_swarm"][k] for k in (
+        "frames", "launches", "launches_per_frame", "max_abs_err")}
+    log(f"mesh phase: {time.perf_counter() - t_mesh:.1f} s")
     t_cli = time.perf_counter()
     for name, run in phase_cli(dev).items():
         tracker_paths[name] = {k: run[k] for k in (
             "frames", "launches", "launches_per_frame", "max_abs_err")}
     log(f"cli phase: {time.perf_counter() - t_cli:.1f} s")
-    worst = max(worst, *(p["max_abs_err"] for p in tracker_paths.values()))
+    worst = max(worst, *(p["max_abs_err"] for p in [*tracker_paths.values(),
+                                                     *mesh_paths.values()]))
     t_bench = time.perf_counter()
     bench_run = phase_bench(cpu_inliers)
     log(f"bench phase: {time.perf_counter() - t_bench:.1f} s")
     times = phase_times(cells)
     per_path = {"batched_step": {"steps": main_path["steps"],
                                  "launches": main_path["launches"]}, **tracker_paths,
+                **mesh_paths,
                 "bench": {k: bench_run[k] for k in ("steps", "launches")},
                 "bench_swarm": bench_run["swarm"]}
     kernels = [{
@@ -2287,7 +2589,10 @@ def main() -> None:
             "stereo_staged": stereo_run["launches_per_frame"],
             "swarm_cohort": swarm["swarm"]["launches_per_cohort_dispatch"],
             "swarm_double_buffer_cohort": swarm["swarm_double_buffer"][
-                "launches_per_cohort_dispatch"]},
+                "launches_per_cohort_dispatch"],
+            **{f"{k}_per_step": v["launches_per_step"] for k, v in mesh_paths.items()
+               if k.startswith("mesh_step_")},
+            "mesh_swarm_cohort": mesh["mesh_swarm"]["launches_per_cohort_dispatch"]},
         "max_abs_err": worst,
         "ms": times["pose_ms"], "plain_ms": times["pose_plain_ms"],
         "bound_ms": times["pose_bound_ms"], "bound_by": times["pose_bound_by"],

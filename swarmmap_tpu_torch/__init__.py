@@ -20,7 +20,11 @@ Layer map (ported so far):
             triangulation, bundle adjustment (dense and CG), Sim3 RANSAC
             and refinement, the essential-graph optimiser; the BoW
             vocabulary
-  pipeline  the fused per-frame tracking step, batched over agents
+  pipeline  the fused per-frame tracking step, batched over agents, and
+            its agent-sharded form over a device list
+  parallel/ device lists as meshes (mesh.py: agent and observation
+            meshes, shard-ordered collectives) and the multi-device dry
+            run (dryrun.py)
   sync/     the change log with push / pull (oplog.py), the msgpack wire
             and map files (codec.py over msgpack_wire.py), the reference's
             boost text wire and binary map files

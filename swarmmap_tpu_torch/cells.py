@@ -48,6 +48,16 @@ frame under a `FrameClock` and keeps, per frame, each agent's path
 (cohort, staged or none), state, pose and keyframes, and every Kth
 cohort dispatch's stacked inputs and outputs.
 
+The `mesh` cells shard over a device list (`parallel/mesh.py`): the
+multi-agent step of 8 agents (`realistic_track_inputs` seeds 0-7, the
+batched step's geometry; `mesh_step_inputs`), the server's global BA
+over an observation mesh on two problems (`parallel.dryrun.two_map_group`'s
+1,909 observations, and `ba_problem`, a 16-camera arc above the loop
+closer's 4,096-observation gate), and `run_mesh_swarm`: a port Swarm of
+8 agents on tests/test_swarm.py's world (synthesize_sequence(seed=0,
+agent=a % 3), 350 landmarks, 24 frames, a report every 4 frames and a
+push every 8, global BA on) over a given device list.
+
 The CLIs run on on-disk trees written with `utils/png.py`:
 `write_euroc_tree` is tests/test_dress_rehearsal.py's fake EuRoC (the
 three sequences of config/mh123.yaml on one world, rendered through the
@@ -932,6 +942,95 @@ def run_swarm(device, double_buffer: bool = False, n_frames: int | None = None,
                     run.step(frames[i], ts)
         swarm.finish()
     run.draws, run.seqs = kept, seqs
+    return run
+
+
+# the mesh cells: the agent-sharded step, sharded global BA, the mesh Swarm
+MESH_AGENTS = 8
+MESH_SWARM_FRAMES = 24
+MESH_SWARM_LANDMARKS = 350
+MESH_REPORT_EVERY = 4
+MESH_PUSH_EVERY = 8
+
+
+MESH_BA_CAMS = 16
+MESH_BA_POINTS = 500
+
+
+def mesh_step_inputs(device):
+    """[MESH_AGENTS, ...] inputs of the batched step's geometry on
+    `device`: `realistic_track_inputs` seeds 0..7 (the JAX package's
+    multi-device dry run)."""
+    from . import pipeline
+
+    return pipeline.stack_inputs([pipeline.realistic_track_inputs(
+        hw=HW, n_map_points=N_MAP_POINTS, seed=s, n_features=N_FEATURES, n_levels=N_LEVELS,
+        device=device) for s in range(MESH_AGENTS)])
+
+
+def ba_problem(device):
+    """A padded BAProblem on `device` after tests/test_ba.py's
+    make_ba_problem (seed 0): MESH_BA_CAMS cameras on an arc (the first
+    two fixed) looking at MESH_BA_POINTS points, 30% of the projections
+    unseen, 0.5 px noise, noisy initial poses and points.  Returns
+    (problem, true poses, true points)."""
+    from .ops import ba, lie
+
+    n_cams, n_pts = MESH_BA_CAMS, MESH_BA_POINTS
+    rng = np.random.RandomState(0)
+    K = np.array([[450.0, 0, 320], [0, 450.0, 240], [0, 0, 1]], np.float32)
+    pts_gt = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                       rng.uniform(5, 9, n_pts)], 1).astype(np.float32)
+    Tcw_gt = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
+    for c in range(n_cams):
+        w = torch.tensor([0.0, 0.05 * (c - n_cams / 2), 0.0])
+        Tcw_gt[c, :3, :3] = lie.so3_exp(w).numpy()
+        Tcw_gt[c, :3, 3] = [-0.4 * c + 0.8, 0.02 * c, 0.01 * c]
+    obs_cam, obs_pt, obs_uv = [], [], []
+    for c in range(n_cams):
+        pc = pts_gt @ Tcw_gt[c, :3, :3].T + Tcw_gt[c, :3, 3]
+        uv = pc[:, :2] / pc[:, 2:3] * 450.0 + K[:2, 2]
+        for j in np.where((pc[:, 2] > 0.5) & (rng.rand(n_pts) > 0.3))[0]:
+            obs_cam.append(c)
+            obs_pt.append(j)
+            obs_uv.append(uv[j] + rng.normal(0, 0.5, 2))
+    Tcw0 = Tcw_gt.copy()
+    for c in range(2, n_cams):
+        xi = np.concatenate([rng.randn(3) * 0.02, rng.randn(3) * 0.1]).astype(np.float32)
+        Tcw0[c] = lie.se3_exp(torch.from_numpy(xi)).numpy() @ Tcw_gt[c]
+    pts0 = pts_gt + rng.normal(0, 0.05, pts_gt.shape).astype(np.float32)
+    prob = ba.build_padded_problem(
+        Tcw0, np.repeat(K[None], n_cams, 0), np.arange(n_cams) < 2, pts0,
+        np.asarray(obs_cam), np.asarray(obs_pt), np.asarray(obs_uv, np.float32),
+        np.ones(len(obs_cam), np.float32), device=device)
+    return prob, Tcw_gt, pts_gt
+
+
+def run_mesh_swarm(device, devices, n_frames: int = MESH_SWARM_FRAMES, hw: tuple[int, int] = HW,
+                   n_features: int = N_FEATURES, n_levels: int = N_LEVELS) -> SwarmRun:
+    """The `mesh_swarm` cell: a port `swarm.Swarm` of MESH_AGENTS agents
+    on tests/test_swarm.py::test_mesh_sharded_swarm_with_merge's world
+    (synthesize_sequence(seed=0, agent=a % 3), 350 landmarks; frames
+    rendered before the run) with `devices` as its device list, a state
+    report every 4 frames, a push every 8 and global BA on, driven by a `SwarmRun`
+    under a `FrameClock`, then `finish`.  The run also carries `seqs`."""
+    from .swarm import Swarm, SwarmConfig
+    from .utils import datasets
+
+    seqs = [datasets.synthesize_sequence(n_frames=n_frames, hw=hw, seed=0, agent=a % 3,
+                                         n_points=MESH_SWARM_LANDMARKS)
+            for a in range(MESH_AGENTS)]
+    frames = [[s.read(i) for s in seqs] for i in range(n_frames)]
+    with FrameClock() as clock:
+        swarm = Swarm(MESH_AGENTS, settings_for(seqs[0].world, n_features, n_levels),
+                      config=SwarmConfig(push_every=MESH_PUSH_EVERY,
+                                         report_every=MESH_REPORT_EVERY),
+                      device=device, devices=devices)
+        run = SwarmRun(swarm, clock)
+        for i in range(n_frames):
+            run.step(frames[i], float(seqs[0].timestamps[i]))
+        swarm.finish()
+    run.seqs = seqs
     return run
 
 

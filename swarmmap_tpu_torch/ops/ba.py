@@ -20,8 +20,18 @@ a host read.
 
 The conjugate-gradient backend of global BA (`mode="cg"`) never builds
 W: each Schur matvec is two segment sums through the same plan, and its
-32 iterations run with no host sync.  The observation-sharded
-`bundle_adjust_sharded` is not ported yet (ROADMAP queue 1, item 17).
+32 iterations run with no host sync.
+
+`bundle_adjust_sharded` splits the observation axis over a device mesh
+(`parallel.mesh.obs_mesh`): each shard holds a contiguous slice of the
+observations with its own segment plan and a replica of the camera and
+point state.  Every reduction over observations (the blocks, each CG
+matvec, the robust cost) is a per-shard partial summed in shard order on
+the mesh's lead device (`parallel.mesh.psum`, JAX's psum over the
+observation axis), where the damping, the CG scalars and the LM accept
+test run once; the new state is then copied to each shard.  The
+one-device path is the same code over one shard, where the sum is the
+identity.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from . import lie
+from ..parallel.mesh import all_gather, psum
 from ..utils.device import default_device
 
 CHI2_MONO = 5.991
@@ -241,12 +252,33 @@ def _segment_sum(x, seg: Segments):
     return buf.view((seg.n, seg.width) + x.shape[1:]).sum(1)
 
 
-def _common_blocks(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan):
-    """Gradient and damped diagonal Hessian blocks of one LM iteration."""
+class Shard(NamedTuple):
+    """One shard of a problem: the observations on one device (with the
+    replicated camera and point state) and their segment plan."""
+    p: BAProblem
+    plan: SegmentPlan
+
+
+def _replicate(x: torch.Tensor, shards: list[Shard]) -> list[torch.Tensor]:
+    return [x.to(s.p.Tcw.device) for s in shards]
+
+
+def _block_sums(r, Jc, Jp, w, plan: SegmentPlan):
+    """One shard's gradient and Hessian diagonal blocks (its segment sums)."""
     bc = -_segment_sum(torch.einsum("oik,o,oi->ok", Jc, w, r), plan.cam)      # [C,6]
     bp = -_segment_sum(torch.einsum("oik,o,oi->ok", Jp, w, r), plan.pt)       # [P,3]
     Hcc = _segment_sum(torch.einsum("oik,o,oil->okl", Jc, w, Jc), plan.cam)   # [C,6,6]
     Hpp = _segment_sum(torch.einsum("oik,o,oil->okl", Jp, w, Jp), plan.pt)    # [P,3,3]
+    return bc, bp, Hcc, Hpp
+
+
+def _common_blocks(lin: list, shards: list[Shard], lam):
+    """Gradient and damped diagonal Hessian blocks of one LM iteration:
+    each shard's segment sums (lin[i] = shard i's (r, Jc, Jp, w)), summed
+    across shards, then damped on the lead device."""
+    p = shards[0].p
+    bc, bp, Hcc, Hpp = psum([_block_sums(*l, s.plan) for l, s in zip(lin, shards)],
+                             p.Tcw.device)
     # LM damping: H + lam*diag(H), multiplicative for scale invariance
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     eye3 = torch.eye(3, dtype=Hcc.dtype, device=Hcc.device)
@@ -260,8 +292,9 @@ def _common_blocks(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan):
 
 
 def _dense_schur_solve(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan):
+    """The reduced camera system built and solved exactly (one device)."""
     n_cams, n_pts = plan.cam.n, plan.pt.n
-    bc, bp, dHcc, Hpp_inv = _common_blocks(r, Jc, Jp, w, p, lam, plan)
+    bc, bp, dHcc, Hpp_inv = _common_blocks([(r, Jc, Jp, w)], [Shard(p, plan)], lam)
     # W[p,c] = sum_obs Jc^T W Jp : [P,C,6,3]
     blocks = torch.einsum("oik,o,oil->okl", Jc, w, Jp)  # [O,6,3]
     Wpc = _segment_sum(blocks, plan.pt_cam).view(n_pts, n_cams, 6, 3)
@@ -279,19 +312,28 @@ def _dense_schur_solve(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan):
     return dxc, dxp
 
 
-def _cg_schur_solve(r, Jc, Jp, w, p: BAProblem, lam, plan: SegmentPlan, cg_iters: int):
+def _cg_schur_solve(lin: list, shards: list[Shard], lam, cg_iters: int):
     """The reduced camera system solved by Jacobi-preconditioned conjugate
     gradients, never materialising W: each Schur matvec is two segment
-    sums over the observations.  cg_iters fixed iterations, no host sync."""
-    bc, bp, dHcc, Hpp_inv = _common_blocks(r, Jc, Jp, w, p, lam, plan)
+    sums over the observations, per shard, summed across shards.  The CG
+    scalars are computed once, on the lead device.  cg_iters fixed
+    iterations, no host sync."""
+    bc, bp, dHcc, Hpp_inv = _common_blocks(lin, shards, lam)
+    lead = bc.device
 
     def Wt_v(v):  # [C,6] -> [P,3] :  W^T v
-        t = torch.einsum("oik,ok->oi", Jc, v[p.obs_cam])
-        return _segment_sum(torch.einsum("oik,o,oi->ok", Jp, w, t), plan.pt)
+        parts = []
+        for (_, Jc, Jp, w), s, vs in zip(lin, shards, _replicate(v, shards)):
+            t = torch.einsum("oik,ok->oi", Jc, vs[s.p.obs_cam])
+            parts.append(_segment_sum(torch.einsum("oik,o,oi->ok", Jp, w, t), s.plan.pt))
+        return psum(parts, lead)
 
     def W_y(y):  # [P,3] -> [C,6] :  W y
-        t = torch.einsum("oik,ok->oi", Jp, y[p.obs_pt])
-        return _segment_sum(torch.einsum("oik,o,oi->ok", Jc, w, t), plan.cam)
+        parts = []
+        for (_, Jc, Jp, w), s, ys in zip(lin, shards, _replicate(y, shards)):
+            t = torch.einsum("oik,ok->oi", Jp, ys[s.p.obs_pt])
+            parts.append(_segment_sum(torch.einsum("oik,o,oi->ok", Jc, w, t), s.plan.cam))
+        return psum(parts, lead)
 
     def S_mv(v):
         hv = torch.einsum("cij,cj->ci", dHcc, v)
@@ -323,27 +365,63 @@ def _6x6_inv(H):
     return torch.linalg.inv_ex(H)[0]
 
 
-def _lm_phase(p: BAProblem, plan: SegmentPlan, Tcw, pts, active, iters, solve):
-    """`iters` LM steps on the active observations; a step is kept where
-    it lowers the robust cost (lambda x0.5), else dropped (lambda x4).
-    solve(r, Jc, Jp, w, p, lam, plan) -> (dxc, dxp) is the backend."""
+def _lm_phase(shards: list[Shard], Tcw, pts, active: list, iters, solve):
+    """`iters` LM steps on the active observations (active[i]: shard i's
+    weights); a step is kept where it lowers the robust cost (lambda
+    x0.5), else dropped (lambda x4).  The state lives on the lead device
+    and is copied to each shard for its per-observation work; the cost is
+    summed across shards, so every shard takes the same step.
+    solve(lin, shards, lam) -> (dxc, dxp) is the backend."""
+    p = shards[0].p
+    lead = p.Tcw.device
     moving = ~(p.cam_fixed | ~p.cam_valid)
-    lam = torch.tensor(1e-4, dtype=Tcw.dtype, device=Tcw.device)
+    lam = torch.tensor(1e-4, dtype=Tcw.dtype, device=lead)
     for _ in range(iters):
-        r, Jc, Jp, w = _linearize(Tcw, pts, p, active)
-        dxc, dxp = solve(r, Jc, Jp, w, p, lam, plan)
+        lin = [_linearize(T, X, s.p, a) for s, T, X, a in
+               zip(shards, _replicate(Tcw, shards), _replicate(pts, shards), active)]
+        dxc, dxp = solve(lin, shards, lam)
         # guard fixed cams / dead points
         dxc = dxc * moving[:, None]
         dxp = dxp * p.pt_valid[:, None]
         Tcw_new = lie.se3_exp(dxc) @ Tcw
         pts_new = pts + dxp
-        r_new, _ = _residual_only(Tcw_new, pts_new, p)
-        ok = _robust_cost(r_new, p.obs_inv_sigma2, active) < _robust_cost(
-            r, p.obs_inv_sigma2, active)
+        c_new = psum([_robust_cost(_residual_only(T, X, s.p)[0], s.p.obs_inv_sigma2, a)
+                       for s, T, X, a in zip(shards, _replicate(Tcw_new, shards),
+                                             _replicate(pts_new, shards), active)], lead)
+        c_old = psum([_robust_cost(l[0], s.p.obs_inv_sigma2, a)
+                       for l, s, a in zip(lin, shards, active)], lead)
+        ok = c_new < c_old
         Tcw = torch.where(ok, Tcw_new, Tcw)
         pts = torch.where(ok, pts_new, pts)
         lam = torch.clamp(torch.where(ok, lam * 0.5, lam * 4.0), 1e-8, 1e8)
     return Tcw, pts
+
+
+def _chi2(shards: list[Shard], Tcw, pts) -> list[tuple]:
+    """Per shard: (chi2 [O_i], positive depth [O_i]) of its observations."""
+    out = []
+    for s, T, X in zip(shards, _replicate(Tcw, shards), _replicate(pts, shards)):
+        r, z = _residual_only(T, X, s.p)
+        out.append((torch.sum(r * r, 1) * s.p.obs_inv_sigma2, z > 0))
+    return out
+
+
+def _bundle_adjust_shards(shards: list[Shard], iters_a: int, iters_b: int, chi2_th: float,
+                          solve) -> BAResult:
+    """The two-phase schedule over the shards; results on the lead device
+    (the per-observation outputs in shard order)."""
+    p = shards[0].p
+    lead, dtype = p.Tcw.device, p.Tcw.dtype
+    Tcw, pts = _lm_phase(shards, p.Tcw, p.pts, [s.p.obs_valid.to(dtype) for s in shards],
+                         iters_a, solve)
+    keep = [(s.p.obs_valid & (chi2 <= chi2_th) & front).to(dtype)
+            for s, (chi2, front) in zip(shards, _chi2(shards, Tcw, pts))]
+    Tcw, pts = _lm_phase(shards, Tcw, pts, keep, iters_b, solve)
+    final = _chi2(shards, Tcw, pts)
+    inlier = [s.p.obs_valid & (chi2 <= chi2_th) & front
+              for s, (chi2, front) in zip(shards, final)]
+    return BAResult(Tcw=Tcw, pts=pts, obs_chi2=all_gather([c for c, _ in final], lead),
+                    obs_inlier=all_gather(inlier, lead))
 
 
 def bundle_adjust(
@@ -360,20 +438,55 @@ def bundle_adjust(
     mode="cg" by cg_iters conjugate-gradient steps (global BA).  Runs on
     the problem's device."""
     if mode == "dense":
-        solve = _dense_schur_solve
+        def solve(lin, shards, lam):
+            return _dense_schur_solve(*lin[0], shards[0].p, lam, shards[0].plan)
     elif mode == "cg":
-        def solve(*args):
-            return _cg_schur_solve(*args, cg_iters=cg_iters)
+        def solve(lin, shards, lam):
+            return _cg_schur_solve(lin, shards, lam, cg_iters=cg_iters)
     else:
         raise ValueError(f"bundle_adjust: unknown mode {mode!r}")
-    dtype = p.Tcw.dtype
-    plan = segment_plan(p, pt_cam=mode == "dense")
-    Tcw, pts = _lm_phase(p, plan, p.Tcw, p.pts, p.obs_valid.to(dtype), iters_a, solve)
-    r, z = _residual_only(Tcw, pts, p)
-    chi2 = torch.sum(r * r, 1) * p.obs_inv_sigma2
-    keep = p.obs_valid & (chi2 <= chi2_th) & (z > 0)
-    Tcw, pts = _lm_phase(p, plan, Tcw, pts, keep.to(dtype), iters_b, solve)
-    r, z = _residual_only(Tcw, pts, p)
-    chi2 = torch.sum(r * r, 1) * p.obs_inv_sigma2
-    inlier = p.obs_valid & (chi2 <= chi2_th) & (z > 0)
-    return BAResult(Tcw=Tcw, pts=pts, obs_chi2=chi2, obs_inlier=inlier)
+    shards = [Shard(p, segment_plan(p, pt_cam=mode == "dense"))]
+    return _bundle_adjust_shards(shards, iters_a, iters_b, chi2_th, solve)
+
+
+def _shard_problem(p: BAProblem, mesh) -> list[Shard]:
+    """The problem split over `mesh`: shard i holds the i-th contiguous
+    slice of the observations and a copy of the camera and point state on
+    mesh.devices[i], with its own segment plan (built on the host from its
+    slice).  Observation indices stay global."""
+    n = mesh.size()
+    O = p.obs_cam.shape[0]
+    if O % n:
+        raise ValueError(f"obs axis {O} must divide mesh size {n}")
+    k = O // n
+    obs = {"obs_cam", "obs_pt", "obs_uv", "obs_inv_sigma2", "obs_valid"}
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        sp = BAProblem(**{f: (x[i * k:(i + 1) * k] if f in obs else x).to(dev)
+                          for f, x in p._asdict().items()})
+        shards.append(Shard(sp, segment_plan(sp, pt_cam=False)))
+    return shards
+
+
+def bundle_adjust_sharded(
+    p: BAProblem,
+    mesh,
+    iters_a: int = 5,
+    iters_b: int = 10,
+    chi2_th: float = CHI2_MONO,
+    cg_iters: int = 32,
+) -> BAResult:
+    """Observation-sharded global BA over a device mesh
+    (`parallel.mesh.obs_mesh`; SURVEY.md §5: the server's joint
+    optimisation sharded across devices).  The same math as
+    bundle_adjust(mode="cg"): the observations split into contiguous
+    shards (`_shard_problem`), the camera and point state replicates, and
+    every reduction over observations is summed across shards in shard
+    order, so two runs give the same bits.  The observation axis must
+    divide the mesh size; build_padded_problem's power-of-two buckets
+    guarantee that for obs_mesh's power-of-two meshes.  Results land on
+    the mesh's lead device."""
+    def solve(lin, shards, lam):
+        return _cg_schur_solve(lin, shards, lam, cg_iters=cg_iters)
+
+    return _bundle_adjust_shards(_shard_problem(p, mesh), iters_a, iters_b, chi2_th, solve)

@@ -169,23 +169,53 @@ def make_multi_agent_step(
     """Multi-agent tracking step: returns a function of [A, ...] inputs
     giving (TrackOutputs, overlap [A,A] int32, total inliers).  The overlap
     hint counts each agent's strongest `n_overlap_desc` descriptors that
-    find a Hamming match < TH_LOW on each other agent's frame.  Only the
-    single-device form exists so far; a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded multi-agent step is not ported yet")
+    find a Hamming match < TH_LOW on each other agent's frame.
+
+    With a mesh (`parallel.mesh.agent_mesh`), the agents split into
+    contiguous shards, one per entry of `mesh.devices`, and each shard's
+    step runs on its device (JAX's shard_map over the 'agents' axis).  The
+    total is the shard-ordered sum of each shard's inliers (the psum); the
+    descriptor samples are concatenated in shard order (the all_gather)
+    and each shard computes its rows of the overlap against them.  Every
+    output comes back as one [A, ...] batch on the mesh's lead device,
+    equal to the plain form's on the same inputs.  A must divide the
+    mesh size."""
     D = n_overlap_desc
+    kw = dict(n_features=n_features, n_levels=n_levels, scale=scale, hw=hw,
+              window_th=window_th)
 
-    def step(inputs: TrackInputs):
-        out = batched_tracking_step(
-            inputs, n_features=n_features, n_levels=n_levels, scale=scale,
-            hw=hw, window_th=window_th,
-        )
-        desc = out.features.desc[:, :D]
-        valid = out.features.valid[:, :D]
-        overlap = pair_overlap(desc, valid, desc, valid)
-        return out, overlap, out.n_inliers.sum()
+    if mesh is None:
+        def step(inputs: TrackInputs):
+            out = batched_tracking_step(inputs, **kw)
+            desc = out.features.desc[:, :D]
+            valid = out.features.valid[:, :D]
+            overlap = pair_overlap(desc, valid, desc, valid)
+            return out, overlap, out.n_inliers.sum()
 
-    return step
+        return step
+
+    from .parallel.mesh import all_gather, psum, shard_agents
+
+    lead = mesh.lead
+
+    def sharded(inputs: TrackInputs):
+        # every shard's work is enqueued before anything is read back
+        outs = [batched_tracking_step(x, **kw) for x in shard_agents(mesh, inputs)]
+        total = psum([o.n_inliers.sum() for o in outs], lead)
+        desc_all = all_gather([o.features.desc[:, :D] for o in outs], lead)
+        valid_all = all_gather([o.features.valid[:, :D] for o in outs], lead)
+        overlap = all_gather([
+            pair_overlap(o.features.desc[:, :D], o.features.valid[:, :D],
+                         desc_all.to(o.Tcw.device), valid_all.to(o.Tcw.device))
+            for o in outs], lead)
+        feats = extractor.FrameFeatures(
+            *(all_gather(list(xs), lead) for xs in zip(*(o.features for o in outs))))
+        out = TrackOutputs(*(all_gather([getattr(o, f) for o in outs], lead)
+                             for f in ("Tcw", "n_inliers", "match_mp")),
+                           feats, all_gather([o.xy_ud for o in outs], lead))
+        return out, overlap, total
+
+    return sharded
 
 
 def realistic_track_inputs(

@@ -12,7 +12,8 @@ Port of swarmmap_tpu/server/loop_closing.py: the host bookkeeping is
 copied line for line; the Sim3 pipeline, the essential graph, the fuse
 match and the CG global BA run on the loop closer's device, and the
 RANSAC draws come from its `torch.Generator` (the JAX package's
-PRNGKey).  A device mesh with more than one device raises (item 17).
+PRNGKey).  With a device mesh (`mesh`, set by a mesh `Swarm`) the global
+BA runs observation-sharded where JAX's gate lets it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from ..core.map_store import NO_MP, MapStore
 from ..ops import pose_graph
 from ..ops import ba as ba_ops
 from ..ops.vocab import Vocabulary
-from ..utils.device import default_device, fetch, require_one_device, to_device
+from ..utils.device import default_device, fetch, to_device
 from ..utils.logging import get_logger
 from . import sim3_match
 
@@ -90,8 +91,7 @@ class LoopClosing:
         self.last_loop_kf = -1
         self.n_loops_closed = 0
         self.n_fused = 0  # total SearchAndFuse fusions across loops
-        # device mesh for observation-sharded GBA (SURVEY.md §5); one
-        # with more than one device raises in global_ba (item 17)
+        # device mesh for observation-sharded GBA (SURVEY.md §5)
         self.mesh = None
 
     # ------------------------------------------------------------------
@@ -493,8 +493,10 @@ class LoopClosing:
         Returns the number of LM iterations applied to the map (0 when
         the pass was skipped, aborted or discarded).  The LM chunks run
         on the loop closer's device on the calling thread's current
-        stream; a mesh of more than one device raises (item 17)."""
-        require_one_device(self.mesh)
+        stream, or observation-sharded over `self.mesh` when it spans more
+        than one device, the problem has 4096 observations or more (enough
+        to amortise the collectives) and its observation axis divides the
+        mesh size."""
         st = self.store
         if iters <= 0:
             return 0
@@ -557,9 +559,16 @@ class LoopClosing:
                 return 0
             step = min(chunk, iters - done)
             a = (step + 1) // 2 if first else 0  # prune phase once, up front
-            res = ba_ops.bundle_adjust(prob, iters_a=a, iters_b=step - a,
-                                       mode="cg", cg_iters=32)
-            prob = prob._replace(Tcw=res.Tcw, pts=res.pts)
+            n_obs = prob.obs_cam.shape[0]
+            if (self.mesh is not None and self.mesh.size() > 1
+                    and n_obs >= 4096 and n_obs % self.mesh.size() == 0):
+                res = ba_ops.bundle_adjust_sharded(
+                    prob, self.mesh, iters_a=a, iters_b=step - a, cg_iters=32)
+            else:
+                res = ba_ops.bundle_adjust(prob, iters_a=a, iters_b=step - a,
+                                           mode="cg", cg_iters=32)
+            # the sharded result lands on the mesh's lead device
+            prob = prob._replace(Tcw=res.Tcw.to(self.device), pts=res.pts.to(self.device))
             done += step
             first = False
         Tn, pn = fetch(res.Tcw, res.pts)

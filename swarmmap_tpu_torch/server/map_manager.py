@@ -9,7 +9,7 @@ trajectory export.
 Port of swarmmap_tpu/server/map_manager.py: the group algebra and the
 store mutations are copied line for line; the fuse match, the group
 transform refinement and the joint group BA (CG) run on the manager's
-device.  A device mesh with more than one device raises (item 17).
+device, observation-sharded over a device mesh where one is given.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 from .. import MAP_BASE
 from ..core.local_mapping import _fuse_body
 from ..core.map_store import NO_MP, MapStore
-from ..utils.device import default_device, fetch, require_one_device, to_device
+from ..utils.device import default_device, fetch, to_device
 from ..utils.logging import get_logger
 from ..utils.padding import pad_slots
 from ..utils.trajectory import save_tum
@@ -327,12 +327,10 @@ class MapManager:
         cross-map coupling is what the per-map GBA cannot express.
 
         Self-checking like correct_loop: the result applies only when the
-        mean capped chi2 improved.  With a multi-device mesh the pass
-        runs observation-sharded, which is not ported yet: it raises
-        (item 17)."""
+        mean capped chi2 improved.  With a mesh of more than one device
+        whose size divides the observation bucket, the pass runs
+        observation-sharded (ops.ba.bundle_adjust_sharded)."""
         from ..ops import ba as ba_ops
-
-        require_one_device(mesh)
 
         members = sorted(self.groups.get(gid, ()))
         if len(members) < 2:
@@ -420,8 +418,14 @@ class MapManager:
                 cams, Kn, fixed, pts_w, obs_cam, obs_pt, obs_uv, obs_is2,
                 device=self.device)
             a = (iters + 1) // 2
-            res = ba_ops.bundle_adjust(
-                prob, iters_a=a, iters_b=iters - a, mode="cg", cg_iters=32)
+            if (mesh is not None and mesh.size() > 1
+                    and prob.obs_cam.shape[0] % mesh.size() == 0):
+                res = ba_ops.bundle_adjust_sharded(
+                    prob, mesh, iters_a=a, iters_b=iters - a, cg_iters=32)
+            else:
+                res = ba_ops.bundle_adjust(
+                    prob, iters_a=a, iters_b=iters - a, mode="cg",
+                    cg_iters=32)
             Tn, pn, chi2_n = fetch(res.Tcw, res.pts, res.obs_chi2)
             nO = len(obs_cam)
             cost_after = float(np.minimum(chi2_n[:nO], chi2_cap).mean())
@@ -458,9 +462,10 @@ class MapManager:
                     p_l = (st.Twl_R.T @ (pn[row] - st.Twl_t)) / s
                     st.set_mp_pos(int(m), p_l.astype(np.float32))
             _log.info("group %d joint GBA over %d maps: %d cams, %d pts, "
-                      "%d obs — chi2 %.2f -> %.2f",
+                      "%d obs — chi2 %.2f -> %.2f%s",
                       gid, len(members), len(cams), len(pts_w), nO,
-                      cost_before, cost_after)
+                      cost_before, cost_after,
+                      " [sharded]" if mesh is not None else "")
             return True
 
     # ------------------------------------------------------------------

@@ -8,9 +8,11 @@ client: its SLAM system, change log and sync endpoints.  `Swarm` runs N
 of them against the port's server: every steady agent's frame goes into
 one batched device dispatch (`pipeline.batched_tracking_step`, one
 `pose_lm` launch for the whole cohort on the card), optionally double
-buffered; the other agents' extractions run as one batch.  The agent
-mesh of the JAX package is not ported (ROADMAP queue 1, item 17): where
-it would build one, `Swarm` raises.
+buffered; the other agents' extractions run as one batch.  Given more
+than one device (`devices=`), `Swarm` shards the cohort over an agent
+mesh as the JAX package does (`pipeline.make_multi_agent_step` with a
+mesh, one `pose_lm` launch per shard), feeds the cross-agent overlap hint
+to the mediators, and runs the server's global BA observation-sharded.
 """
 from __future__ import annotations
 
@@ -125,10 +127,10 @@ class SwarmConfig:
     # in step() (reference: MediatorScheduler::Run worker,
     # MediatorScheduler.cc:130-143). Default off for determinism.
     async_server: bool = False
-    # shard agents across a device mesh (SURVEY.md §2.10 row 1).  None =
-    # auto: on when the host exposes >1 device and the swarm has at least
-    # one agent per device.  The mesh is not ported (item 17): where one
-    # would be built, Swarm raises.
+    # shard agents across a device mesh (SURVEY.md §2.10 row 1: the
+    # reference's one-thread-per-agent becomes agent data parallelism).
+    # None = auto: on when the swarm has more than one device and at
+    # least one agent per device.
     mesh_agents: bool | None = None
     # double-buffered dispatch: dispatch frame t's cohort BEFORE
     # committing frame t-1's results — the pose guess chains on device
@@ -147,25 +149,23 @@ class Swarm:
                  config: SwarmConfig | None = None,
                  tracking_params: TrackingParams | None = None,
                  run_server_gba: bool = True,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 devices: list | None = None):
         """`device` runs every agent's and the server's device programs; by
         default the card (`utils.device.default_device`), which raises
-        where there is none.  Tests pass device="cpu"."""
+        where there is none.  Tests pass device="cpu".  `devices` is the
+        list that the agent mesh and the sharded global BA may span; by
+        default `device` followed by every other visible card when `device`
+        is one (so `device` leads the mesh), else [device].  A repeated
+        entry (["cpu"] * 8) shards on one device."""
         self.device = torch.device(default_device() if device is None else device)
         self.config = config or SwarmConfig()
-        # agent mesh: where the JAX package shards the fused cohort across
-        # devices (more than one device and, in auto mode, at least one
-        # agent per device), the port raises rather than run on one
-        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 0
-        want_mesh = (self.config.mesh_agents
-                     if self.config.mesh_agents is not None
-                     else (n_dev > 1 and n_agents >= n_dev))
-        if want_mesh and n_dev > 1:
-            raise NotImplementedError(
-                f"an agent mesh over {n_dev} devices is not ported yet "
-                "(ROADMAP queue 1, item 17)")
-        self.mesh = None
-        self.gba_mesh = None
+        if devices is None:
+            from .parallel.mesh import visible_devices
+
+            devices = [self.device] + ([d for d in visible_devices() if d != self.device]
+                                       if self.device.type == "cuda" else [])
+        self.devices = [torch.device(d) for d in devices]
         self.vocab = vocab or default_vocabulary()
         self.settings = settings
         AgentMediator.registry.clear()
@@ -200,10 +200,32 @@ class Swarm:
                 a.system.local_mapping.start_async()
         if self.config.async_server:
             self.scheduler.start_worker()
+        # agent mesh: shard the fused cohort across devices when there
+        # are enough devices AND agents (the production multi-device path;
+        # the 'agents' axis carries the cross-agent overlap prefilter)
+        self.mesh = None
+        self._mesh_step = None
         self._pending = None  # double-buffer: in-flight fused dispatch
         self._n_overlap_desc = 128  # prefilter descriptor-bank size D
         self._overlap_norm = float(self._n_overlap_desc)
         self.overlap_hint = None  # [N,N] cross-agent descriptor overlap
+        n_dev = len(self.devices)
+        want_mesh = (self.config.mesh_agents
+                     if self.config.mesh_agents is not None
+                     else (n_dev > 1 and n_agents >= n_dev))
+        self.gba_mesh = None
+        if want_mesh and n_dev > 1:
+            from .parallel.mesh import agent_mesh, obs_mesh
+
+            d = max(x for x in range(1, n_dev + 1) if n_agents % x == 0)
+            self.mesh = agent_mesh(d, devices=self.devices)
+            _log.info("agent mesh: %d agents sharded over %d devices",
+                      n_agents, d)
+            # server-side GBA shards the observation axis over all
+            # devices (power-of-two count so padded buckets divide)
+            self.gba_mesh = obs_mesh(devices=self.devices)
+            for med in self.mediators:
+                med.loop_closing.mesh = self.gba_mesh
         self.frame_count = 0
         self.fused_cohort_dispatches = 0  # frames where ALL steady agents ran as ONE dispatch
         # single worker: waits for the cohort's feature copies beside the
@@ -350,8 +372,20 @@ class Swarm:
 
         orb = self.settings.orb
         hw = tuple(live[fused[0][0]][1].shape[:2])
-        rows = {id(live[i][0]): j for j, (i, _, _) in enumerate(fused)}
-        n_rows = len(fused)
+        mesh_mode = self.mesh is not None
+        if mesh_mode:
+            # full-width batch (one row per agent; non-fused rows are
+            # dummies whose outputs are discarded) so every shard holds
+            # its agents; the batch and its outputs live on the mesh's
+            # lead device
+            rows = {id(live[i][0]): self.agents.index(live[i][0])
+                    for i, _, _ in fused}
+            n_rows = len(self.agents)
+            dev = self.mesh.lead
+        else:
+            rows = {id(live[i][0]): j for j, (i, _, _) in enumerate(fused)}
+            n_rows = len(fused)
+            dev = self.device
         with STATS.stage("h2d"):
             ref_inp = fused[0][1]
             stacked = []
@@ -369,7 +403,7 @@ class Swarm:
                     buf[rows[id(live[i][0])]] = getattr(inp, f)
                 # descriptor words are int32 on the device (same bits)
                 stacked.append(buf.view(np.int32) if buf.dtype == np.uint32 else buf)
-            inputs = pipeline.TrackInputs(*upload(*stacked, device=self.device))
+            inputs = pipeline.TrackInputs(*upload(*stacked, device=dev))
         if chain is not None:
             sel_new, sel_old, Ppp_inv = [], [], []
             for i, _inp, _slots in fused:
@@ -382,20 +416,30 @@ class Swarm:
                     sel_old.append(chain["rows"][aid])
                     Ppp_inv.append(np.linalg.inv(lf.pose_cw))
             if sel_new:
-                P_prev = chain["out"].Tcw[torch.tensor(sel_old, device=self.device)]
+                P_prev = chain["out"].Tcw[torch.tensor(sel_old, device=dev)]
                 G = P_prev @ torch.from_numpy(
-                    np.stack(Ppp_inv).astype(np.float32)).to(self.device) @ P_prev
+                    np.stack(Ppp_inv).astype(np.float32)).to(dev) @ P_prev
                 # a new guess tensor: the uploaded one is not written in place
                 inputs = inputs._replace(Tcw_guess=inputs.Tcw_guess.index_put(
-                    (torch.tensor(sel_new, device=self.device),), G))
+                    (torch.tensor(sel_new, device=dev),), G))
         with STATS.stage("dispatch"):
             STATS.bump("rpc_dispatch")
             window_th = self.agents[0].system.tracking.p.fused_window_th
-            out = pipeline.batched_tracking_step(
-                inputs, n_features=orb.n_features, n_levels=orb.n_levels,
-                scale=orb.scale_factor, hw=hw, window_th=window_th,
-            )
-            overlap_dev = None
+            if mesh_mode:
+                if self._mesh_step is None:
+                    self._mesh_step = pipeline.make_multi_agent_step(
+                        n_features=orb.n_features, n_levels=orb.n_levels,
+                        scale=orb.scale_factor, hw=hw,
+                        window_th=window_th, mesh=self.mesh,
+                        n_overlap_desc=self._n_overlap_desc,
+                    )
+                out, overlap_dev, _total = self._mesh_step(inputs)
+            else:
+                out = pipeline.batched_tracking_step(
+                    inputs, n_features=orb.n_features, n_levels=orb.n_levels,
+                    scale=orb.scale_factor, hw=hw, window_th=window_th,
+                )
+                overlap_dev = None
         feats = out.features
         # enqueue the feature D2H now, behind the step: the copies stream
         # while the blocking pose fetch is in flight, so a keyframe frame's
@@ -474,8 +518,7 @@ class Swarm:
     def _update_overlap_hint(self, overlap: np.ndarray, rows: dict):
         """Feed the cross-agent descriptor-overlap matrix to the server's
         place-recognition budget (it ranks Sim3 attempts).  Only the agent
-        mesh's step computes the matrix (JAX `make_multi_agent_step` with
-        a mesh), so on one card nothing calls this until item 17."""
+        mesh's step computes the matrix, so only a mesh Swarm calls this."""
         self.overlap_hint = overlap
         n = overlap.shape[1]
         for agent in self.agents:
@@ -550,7 +593,8 @@ class Swarm:
         self.map_manager.polish_group_transforms()
         # joint merged-group GBA: couples the member maps through their
         # cross-map duplicate observations (SURVEY.md §5); self-checking
-        # — applies only when the group chi2 improves
+        # — applies only when the group chi2 improves — and runs
+        # observation-sharded when an agent mesh is up
         for gid, members in list(self.map_manager.groups.items()):
             if len(members) >= 2:
                 self.map_manager.group_global_ba(

@@ -141,15 +141,3 @@ def upload(*trees, device: torch.device | str):
     return _map(lambda x: torch.as_tensor(x).to(device, non_blocking=True),
                 obj, leaf=np.ndarray)
 
-
-def require_one_device(mesh) -> None:
-    """Raise where `mesh` (None, a torch DeviceMesh, or anything with a
-    `.devices` array) spans more than one device: the observation-sharded
-    global BA over a mesh is not ported yet (ROADMAP queue 1, item 17)."""
-    if mesh is None:
-        return
-    n = mesh.size() if callable(getattr(mesh, "size", None)) else np.size(mesh.devices)
-    if n > 1:
-        raise NotImplementedError(
-            f"global BA sharded over a {n}-device mesh is not ported yet "
-            "(ROADMAP queue 1, item 17)")

@@ -212,8 +212,16 @@ def test_map_segmentation(circuit_run):
 
 def test_global_ba_abort_discards_progress(circuit_run):
     """mbStopGBA: an aborted GBA leaves the map untouched and reports no
-    iteration applied; a mesh of more than one device raises (item 17)."""
-    from types import SimpleNamespace
+    iteration applied.  With a 4-entry CPU mesh, global_ba takes the
+    observation-sharded branch, since the circuit's problem passes JAX's
+    gate (4096 observations or more, divisible by the mesh size); the
+    sharded result agrees with the one-device CG on the same problem within the replicas' bars (STORE_TOL: poses 2e-3 and
+    positions 1e-2 of the largest coordinate; the circuit's weakly seen
+    points move by up to 2e-2 under the shards' other summation order)
+    and inlier agreement above 0.99, and an abort before the apply leaves
+    the map untouched again."""
+    from swarmmap_tpu_torch.ops import ba
+    from swarmmap_tpu_torch.parallel.mesh import obs_mesh
 
     srv, _, _ = circuit_run
     med = srv.mediators[0]
@@ -231,9 +239,36 @@ def test_global_ba_abort_discards_progress(circuit_run):
     np.testing.assert_array_equal(st.kf_pose_cw[kfs], before)
     np.testing.assert_array_equal(st.mp_pos[: st.n_mp], pts_before)
     assert len(calls) >= 2
-    med.loop_closing.mesh = SimpleNamespace(devices=np.zeros(4))
+    mesh = obs_mesh(devices=["cpu"] * 4)
+    branches, inner_sharded, inner_one = [], ba.bundle_adjust_sharded, ba.bundle_adjust
+
+    def sharded(p, m, **kw):
+        res = inner_sharded(p, m, **kw)
+        branches.append(("sharded", p.obs_cam.shape[0], res, inner_one(p, mode="cg", **kw)))
+        return res
+
+    def one_device(p, **kw):
+        res = inner_one(p, **kw)
+        branches.append(("one", p.obs_cam.shape[0], res, res))
+        return res
+
+    stops = []
+    med.loop_closing.mesh = mesh
+    ba.bundle_adjust_sharded, ba.bundle_adjust = sharded, one_device
     try:
-        with pytest.raises(NotImplementedError, match="item 17"):
-            med.loop_closing.global_ba(iters=2)
+        # no abort before the only chunk, then one before the apply
+        assert med.loop_closing.global_ba(
+            iters=2, chunk=2, should_abort=lambda: stops.append(1) or len(stops) >= 2) == 0
     finally:
         med.loop_closing.mesh = None
+        ba.bundle_adjust_sharded, ba.bundle_adjust = inner_sharded, inner_one
+    np.testing.assert_array_equal(st.kf_pose_cw[kfs], before)
+    np.testing.assert_array_equal(st.mp_pos[: st.n_mp], pts_before)
+    assert len(branches) == 1
+    branch, n_obs, res, ref = branches[0]
+    assert branch == "sharded" and n_obs >= 4096 and n_obs % 4 == 0, (branch, n_obs)
+    n_cam, n_pt = len(kfs), int(st.mp_alive[: st.n_mp].sum())
+    for x, y, tol in ((res.Tcw[:n_cam], ref.Tcw[:n_cam], STORE_TOL["pose"]),
+                      (res.pts[:n_pt], ref.pts[:n_pt], STORE_TOL["pos"])):
+        assert float((x - y).abs().max()) <= tol * max(float(y.abs().max()), 1.0)
+    assert (res.obs_inlier == ref.obs_inlier).float().mean() > 0.99

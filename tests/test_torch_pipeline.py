@@ -23,6 +23,7 @@ from swarmmap_tpu.utils import datasets as jdata
 from swarmmap_tpu_torch import convert, pipeline, swarm
 from swarmmap_tpu_torch.core import frame, keyframe_db, map_store, tracking
 from swarmmap_tpu_torch.ops import vocab
+from swarmmap_tpu_torch.parallel import mesh as parallel_mesh
 from swarmmap_tpu_torch.utils import config, datasets, device
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -102,8 +103,16 @@ def test_multi_agent_step_matches_jax(jax_inputs):
     assert ov_b.shape == (3, 3)
     assert np.abs(ov_b.numpy() - ov_a).max() <= 2, (ov_a, ov_b)
     assert abs(int(tot_b) - int(tot_a)) <= max(3, 0.05 * int(tot_a))
-    with pytest.raises(NotImplementedError):
-        pipeline.make_multi_agent_step(mesh=object())
+    # the agent-sharded step over three CPU entries: the plain step's
+    # integer outputs and overlap (tests/test_torch_mesh.py holds it to JAX's)
+    m = parallel_mesh.agent_mesh(devices=["cpu"] * 3)
+    out_c, ov_c, tot_c = pipeline.make_multi_agent_step(**KW, mesh=m)(
+        convert.track_inputs_from_numpy(batch, device="cpu"))
+    out_b = pipeline.make_multi_agent_step(**KW)(
+        convert.track_inputs_from_numpy(batch, device="cpu"))[0]
+    assert torch.equal(ov_c, ov_b) and int(tot_c) == int(tot_b)
+    assert torch.equal(out_c.n_inliers, out_b.n_inliers)
+    assert torch.equal(out_c.match_mp, out_b.match_mp)
 
 
 def test_realistic_inputs_match_jax(jax_inputs):
@@ -193,7 +202,8 @@ def test_port_never_reaches_jax():
     network and the viewers too), runs a small tracking step on its plain
     path, tracks three RGB-D frames with its tracker, round-trips its map
     through the codec, serves it as one push to a scheduler, builds and
-    finishes a 2-agent Swarm, tracks two stereo frames, segments a
+    finishes a 2-agent Swarm, runs the two-map group GBA sharded over two
+    CPU entries, tracks two stereo frames, segments a
     keyframe with the shipped segmenter, reads config/settings/EuRoC.yaml,
     runs `swarm_map -d` on a tiny EuRoC tree written by its PNG writer,
     makes a websocket round trip and says what the PNG map viewer
@@ -244,6 +254,8 @@ def test_port_never_reaches_jax():
         "sw = swarm.Swarm(2, s, config=swarm.SwarmConfig(), device='cpu')\n"
         "sw.finish()\n"
         "assert len(sw.agents) == len(sw.mediators) == 2 and sw.mesh is None\n"
+        "from swarmmap_tpu_torch.parallel import dryrun, mesh\n"
+        "assert dryrun.dryrun_group_gba(2, ['cpu', 'cpu']) < 1e-3\n"
         "from swarmmap_tpu_torch.core import dynamic, system\n"
         "from swarmmap_tpu_torch.ops import stereo\n"
         "st = system.System(s, device='cpu')\n"

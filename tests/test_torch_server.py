@@ -488,8 +488,10 @@ def _build_two_map_group(P, rng, twl1_scale=1.1):
 
 def group_global_ba_joint_over_members(P, rng, tmp_path):
     """The joint merged-group GBA (CG) couples the member maps through
-    their cross-map duplicate observations; without a mesh (the port
-    raises for a mesh of more than one device: item 17)."""
+    their cross-map duplicate observations; on the port, the mesh variant
+    of tests/test_server.py (the same group again, sharded over a 2-entry
+    CPU obs_mesh) applies, passes the same bars and agrees with mesh=None
+    within tests/test_ba.py's sharded bars (poses 2e-3, points 5e-3)."""
     rng = np.random.RandomState(7)
     mgr, st0, st1, pts_w = _build_two_map_group(P, rng)
 
@@ -506,8 +508,30 @@ def group_global_ba_joint_over_members(P, rng, tmp_path):
     resid = np.linalg.norm(est @ (s * R).T + t - pts_w, axis=1)
     assert np.median(resid) < 0.03, np.median(resid)
     if P is PKGS["port"]:
-        with pytest.raises(NotImplementedError, match="item 17"):
-            mgr.group_global_ba(0, iters=2, mesh=SimpleNamespace(devices=np.zeros(2)))
+        from swarmmap_tpu_torch.ops import ba
+        from swarmmap_tpu_torch.parallel.mesh import obs_mesh
+
+        mgr_s, st0_s, st1_s, _ = _build_two_map_group(P, np.random.RandomState(7))
+        mesh = obs_mesh(devices=["cpu"] * 2)
+        calls, inner = [], ba.bundle_adjust_sharded
+
+        def sharded(p, m, **kw):
+            calls.append(m)
+            return inner(p, m, **kw)
+
+        ba.bundle_adjust_sharded = sharded
+        try:
+            assert mgr_s.group_global_ba(0, iters=10, mesh=mesh), "sharded joint GBA did not apply"
+        finally:
+            ba.bundle_adjust_sharded = inner
+        assert calls == [mesh]
+        gap = float(np.linalg.norm(st0_s.mp_global_pos(np.arange(150))
+                                   - st1_s.mp_global_pos(np.arange(150)), axis=1).mean())
+        assert gap < before * 0.1, (before, gap)
+        for a, b in ((st0, st0_s), (st1, st1_s)):
+            np.testing.assert_allclose(b.kf_pose_cw[: b.n_kf], a.kf_pose_cw[: a.n_kf],
+                                       rtol=0, atol=2e-3)
+            np.testing.assert_allclose(b.mp_pos[: b.n_mp], a.mp_pos[: a.n_mp], rtol=0, atol=5e-3)
     return dict(pose0=st0.kf_pose_cw[: st0.n_kf], pose1=st1.kf_pose_cw[: st1.n_kf],
                 pos0=st0.mp_pos[: st0.n_mp], pos1=st1.mp_pos[: st1.n_mp])
 

@@ -34,8 +34,8 @@ so another keyframe decision.
 Then tests/test_swarm.py's assertions on the port's run and on its own
 double-buffered, async-mapping and fully async runs; a cohort row against
 `pipeline.tracking_step` on that agent's inputs; the double buffer's
-chained guess against the same product on the host; and a mesh, which
-raises (ROADMAP item 17).
+chained guess against the same product on the host; and the mesh rule
+over a list of CPU devices (the mesh run is tests/test_torch_mesh_swarm.py).
 """
 import contextlib
 
@@ -397,15 +397,25 @@ def test_staged_agents_extract_as_one_batch(seqs, monkeypatch):
 
 
 @pytest.mark.parametrize("mesh_agents", [True, None])
-def test_mesh_is_not_ported(seqs, monkeypatch, mesh_agents):
-    """Where the JAX package shards the cohort over an agent mesh (here 8
-    agents on 8 devices), the port raises naming ROADMAP item 17; on the
-    CPU there is no mesh to build."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Swarm(8, _settings(seqs[0].world), config=SwarmConfig(mesh_agents=mesh_agents))
-    swarm = Swarm(2, _settings(seqs[0].world), config=SwarmConfig(mesh_agents=mesh_agents),
-                  device="cpu")
-    assert swarm.mesh is None
+def test_mesh_is_not_ported(seqs, mesh_agents):
+    """The JAX package's mesh rule (swarm.py:174-201), forced and auto:
+    8 agents over a list of 8 CPU entries build an agent mesh of 8 and an
+    observation mesh of 8 on every mediator's loop closer.  With the
+    default list on the CPU ([device]) nothing is sharded; 2 agents over 8
+    entries build none in auto mode, and, forced, a mesh of 2 (the largest
+    divisor of the agents within the devices)."""
+    settings = _settings(seqs[0].world)
+    swarm = Swarm(8, settings, config=SwarmConfig(mesh_agents=mesh_agents), device="cpu",
+                  devices=["cpu"] * 8)
+    assert swarm.mesh.size() == 8 and swarm.mesh.axis_names == ("agents",)
+    assert swarm.gba_mesh.size() == 8 and swarm.gba_mesh.axis_names == ("obs",)
+    assert all(m.loop_closing.mesh is swarm.gba_mesh for m in swarm.mediators)
+    swarm.finish()
+    swarm = Swarm(2, settings, config=SwarmConfig(mesh_agents=mesh_agents), device="cpu")
+    assert swarm.devices == [torch.device("cpu")]
+    assert swarm.mesh is None and swarm.gba_mesh is None
+    swarm.finish()
+    swarm = Swarm(2, settings, config=SwarmConfig(mesh_agents=mesh_agents), device="cpu",
+                  devices=["cpu"] * 8)
+    assert (swarm.mesh is None) if mesh_agents is None else swarm.mesh.size() == 2
     swarm.finish()
