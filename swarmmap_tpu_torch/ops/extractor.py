@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import named_range
 from . import brief, fast, orientation, pyramid
 
 
@@ -62,51 +63,64 @@ def extract_orb(
     rotates the pattern per keypoint."""
     if desc_mode not in ("binned", "exact"):
         raise ValueError(f"unknown desc_mode {desc_mode!r}")
+    with named_range("extract"):
+        return _extract_orb(img, n_features, n_levels, scale, th_high, th_low,
+                            desc_mode == "binned", desc_pattern)
+
+
+def _extract_orb(img, n_features, n_levels, scale, th_high, th_low, binned,
+                 desc_pattern) -> FrameFeatures:
     batch = img.shape[:-2]
-    levels = pyramid.build_pyramid(img, n_levels, scale)
+    with named_range("extract.pyramid"):
+        levels = pyramid.build_pyramid(img, n_levels, scale)
     budgets = level_budgets(n_features, n_levels, scale)
     n_total = _round_up(sum(budgets), 128)
 
-    binned = desc_mode == "binned"
     xs, resps, octs, angs, descs, vals, patches = [], [], [], [], [], [], []
     for l, (lvl_img, budget) in enumerate(zip(levels, budgets)):
         if budget == 0 or min(lvl_img.shape[-2:]) <= 2 * 16 + 8:
             continue
-        kps = fast.detect_fast(lvl_img, budget, th_high=th_high, th_low=th_low)
-        m10, m01 = orientation.moment_maps(lvl_img)
-        ang = orientation.ic_angles_conv(m10, m01, kps.xy, kps.valid)
-        blurred = pyramid.gaussian_blur(lvl_img)
+        with named_range("extract.fast"):
+            kps = fast.detect_fast(lvl_img, budget, th_high=th_high, th_low=th_low)
+        with named_range("extract.orientation"):
+            m10, m01 = orientation.moment_maps(lvl_img)
+            ang = orientation.ic_angles_conv(m10, m01, kps.xy, kps.valid)
+        with named_range("extract.blur"):
+            blurred = pyramid.gaussian_blur(lvl_img)
         if binned:
             # every level's patches go through ONE descriptor pass below
-            patches.append(brief.extract_patches(
-                torch.round(torch.clamp(blurred, 0.0, 255.0)), kps.xy))
+            with named_range("extract.patches"):
+                patches.append(brief.extract_patches(
+                    torch.round(torch.clamp(blurred, 0.0, 255.0)), kps.xy))
         else:
-            descs.append(brief.compute_descriptors(
-                blurred, kps.xy, ang, kps.valid, pattern=desc_pattern))
+            with named_range("extract.brief"):
+                descs.append(brief.compute_descriptors(
+                    blurred, kps.xy, ang, kps.valid, pattern=desc_pattern))
         xs.append(kps.xy * np.float32(scale**l).item())
         resps.append(kps.score)
         octs.append(torch.full(batch + (budget,), l, dtype=torch.int32, device=img.device))
         angs.append(ang)
         vals.append(kps.valid)
 
-    xy = torch.cat(xs, -2)
-    response = torch.cat(resps, -1)
-    octave = torch.cat(octs, -1)
-    angle = torch.cat(angs, -1)
-    valid = torch.cat(vals, -1)
-    if binned:
-        desc = brief.descriptors_from_patches(
-            torch.cat(patches, -3), angle, valid, pattern=desc_pattern)
-    else:
-        desc = torch.cat(descs, -2)
-    pad = n_total - xy.shape[-2]
-    if pad > 0:
-        xy = F.pad(xy, (0, 0, 0, pad))
-        response = F.pad(response, (0, pad))
-        octave = F.pad(octave, (0, pad))
-        angle = F.pad(angle, (0, pad))
-        desc = F.pad(desc, (0, 0, 0, pad))
-        valid = F.pad(valid, (0, pad))
+    with named_range("extract.brief"):
+        xy = torch.cat(xs, -2)
+        response = torch.cat(resps, -1)
+        octave = torch.cat(octs, -1)
+        angle = torch.cat(angs, -1)
+        valid = torch.cat(vals, -1)
+        if binned:
+            desc = brief.descriptors_from_patches(
+                torch.cat(patches, -3), angle, valid, pattern=desc_pattern)
+        else:
+            desc = torch.cat(descs, -2)
+        pad = n_total - xy.shape[-2]
+        if pad > 0:
+            xy = F.pad(xy, (0, 0, 0, pad))
+            response = F.pad(response, (0, pad))
+            octave = F.pad(octave, (0, pad))
+            angle = F.pad(angle, (0, pad))
+            desc = F.pad(desc, (0, 0, 0, pad))
+            valid = F.pad(valid, (0, pad))
     return FrameFeatures(xy, response, octave, angle, desc, valid)
 
 

@@ -6,9 +6,12 @@ matching with the mutual-best check -> LM pose optimisation.  Where the
 JAX package vmaps `tracking_step` over agents, every op here carries the
 agent axis as a leading batch dimension, so A agents cost the launches of
 one (no Python loop over agents).  On CUDA the pose stage is one launch of
-the hand-written kernel (ops/pose_kernel.py).
+the hand-written kernel (ops/pose_kernel.py).  `make_multi_agent_step`
+takes a mesh (`parallel.mesh`) and shards the agents over its devices.
 
-Not ported yet: the mesh branch of `make_multi_agent_step`.
+Each stage is a profiler range (`utils.profiling.named_range`): `extract`
+(ops/extractor.py), `match` with `match.undistort`, `match.project`,
+`match.window`, `match.hamming` and `match.pair`, and `pose`.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from .ops import extractor, hamming, matching, pose_opt
 from .utils.device import default_device
+from .utils.profiling import named_range
 
 
 class TrackInputs(NamedTuple):
@@ -64,51 +68,64 @@ def match_frame(
     feats = extractor.extract_orb(
         inp.image, n_features=n_features, n_levels=n_levels, scale=scale
     )
-    # undistort inside the step (reference: Frame::UndistortKeyPoints);
-    # an agent with dist == 0 keeps its raw detections bit for bit
-    no_dist = torch.all(inp.dist == 0, dim=-1)                     # [A]
-    xy_ud = torch.where(
-        no_dist[:, None, None], feats.xy,
-        extractor.undistort_points(feats.xy, inp.K, inp.dist),
-    )
-    # visibility bounds from the undistorted image corners (reference:
-    # Frame::ComputeImageBounds)
-    h_, w_ = hw
-    corners = torch.tensor([[0.0, 0.0], [w_, 0.0], [0.0, h_], [w_, h_]],
-                           dtype=torch.float32, device=feats.xy.device)
-    corners = corners.expand(no_dist.shape + corners.shape)
-    cu = torch.where(no_dist[:, None, None], corners,
-                     extractor.undistort_points(corners, inp.K, inp.dist))
-    bounds = (cu[..., 0].amin(-1), cu[..., 0].amax(-1),
-              cu[..., 1].amin(-1), cu[..., 1].amax(-1))
-    uv, depth, visible = matching.project_to_frame(
-        inp.Tcw_guess, inp.K, inp.mp_pos, hw, bounds=bounds
-    )
-    visible = visible & inp.mp_valid
-    pred_oct = matching.predicted_octave(depth, inp.mp_max_dist, scale, n_levels)
-    radius = window_th * torch.tensor(scale, dtype=torch.float32) ** pred_oct.float()
-    mask = matching.window_mask(
-        uv, xy_ud, radius, visible, feats.valid,
-        t_octave=feats.octave, oct_lo=pred_oct - 1, oct_hi=pred_oct + 1,
-    )
-    m = matching.masked_match(
-        inp.mp_desc, feats.desc, mask, max_dist=matching.TH_HIGH, ratio=0.0
-    )
-    # invert matches with gathers: the mutual-best pairing is an
-    # involution, so keypoint t's map point is target_q[t] whenever that
-    # query's match survived
-    n_kp = feats.xy.shape[-2]
-    t_ids = torch.arange(n_kp, dtype=torch.int32, device=feats.xy.device)
-    bq = m.target_q.long()                                  # [A, N_kp]
-    survived = torch.gather(m.valid, -1, bq) & (torch.gather(m.idx, -1, bq) == t_ids)
-    match_mp = torch.where(survived, m.target_q, -1)
-    kp_mp = torch.clamp(match_mp, 0, inp.mp_pos.shape[-2] - 1).long()
-    pts = torch.gather(inp.mp_pos, -2, kp_mp[..., None].expand(kp_mp.shape + (3,)))
-    valid = (match_mp >= 0) & feats.valid
-    sig2 = torch.tensor(scale, dtype=torch.float32) ** (2.0 * feats.octave.float())
-    problem = PoseProblem(*(x.contiguous() for x in (
-        inp.Tcw_guess, inp.K, pts, xy_ud, 1.0 / sig2, valid)))
+    with named_range("match"):
+        xy_ud, match_mp, problem = _match(inp, feats, n_levels, scale, hw, window_th)
     return feats, xy_ud, match_mp, problem
+
+
+def _match(inp: TrackInputs, feats: extractor.FrameFeatures, n_levels: int,
+           scale: float, hw: tuple[int, int], window_th: float):
+    """match_frame after the extraction: (xy_ud, match_mp, pose problem)."""
+    with named_range("match.undistort"):
+        # undistort inside the step (reference: Frame::UndistortKeyPoints);
+        # an agent with dist == 0 keeps its raw detections bit for bit
+        no_dist = torch.all(inp.dist == 0, dim=-1)                     # [A]
+        xy_ud = torch.where(
+            no_dist[:, None, None], feats.xy,
+            extractor.undistort_points(feats.xy, inp.K, inp.dist),
+        )
+        # visibility bounds from the undistorted image corners (reference:
+        # Frame::ComputeImageBounds)
+        h_, w_ = hw
+        corners = torch.tensor([[0.0, 0.0], [w_, 0.0], [0.0, h_], [w_, h_]],
+                               dtype=torch.float32, device=feats.xy.device)
+        corners = corners.expand(no_dist.shape + corners.shape)
+        cu = torch.where(no_dist[:, None, None], corners,
+                         extractor.undistort_points(corners, inp.K, inp.dist))
+        bounds = (cu[..., 0].amin(-1), cu[..., 0].amax(-1),
+                  cu[..., 1].amin(-1), cu[..., 1].amax(-1))
+    with named_range("match.project"):
+        uv, depth, visible = matching.project_to_frame(
+            inp.Tcw_guess, inp.K, inp.mp_pos, hw, bounds=bounds
+        )
+        visible = visible & inp.mp_valid
+        pred_oct = matching.predicted_octave(depth, inp.mp_max_dist, scale, n_levels)
+        radius = window_th * torch.tensor(scale, dtype=torch.float32) ** pred_oct.float()
+    with named_range("match.window"):
+        mask = matching.window_mask(
+            uv, xy_ud, radius, visible, feats.valid,
+            t_octave=feats.octave, oct_lo=pred_oct - 1, oct_hi=pred_oct + 1,
+        )
+    with named_range("match.hamming"):
+        m = matching.masked_match(
+            inp.mp_desc, feats.desc, mask, max_dist=matching.TH_HIGH, ratio=0.0
+        )
+    with named_range("match.pair"):
+        # invert matches with gathers: the mutual-best pairing is an
+        # involution, so keypoint t's map point is target_q[t] whenever that
+        # query's match survived
+        n_kp = feats.xy.shape[-2]
+        t_ids = torch.arange(n_kp, dtype=torch.int32, device=feats.xy.device)
+        bq = m.target_q.long()                                  # [A, N_kp]
+        survived = torch.gather(m.valid, -1, bq) & (torch.gather(m.idx, -1, bq) == t_ids)
+        match_mp = torch.where(survived, m.target_q, -1)
+        kp_mp = torch.clamp(match_mp, 0, inp.mp_pos.shape[-2] - 1).long()
+        pts = torch.gather(inp.mp_pos, -2, kp_mp[..., None].expand(kp_mp.shape + (3,)))
+        valid = (match_mp >= 0) & feats.valid
+        sig2 = torch.tensor(scale, dtype=torch.float32) ** (2.0 * feats.octave.float())
+        problem = PoseProblem(*(x.contiguous() for x in (
+            inp.Tcw_guess, inp.K, pts, xy_ud, 1.0 / sig2, valid)))
+    return xy_ud, match_mp, problem
 
 
 def batched_tracking_step(
@@ -125,15 +142,16 @@ def batched_tracking_step(
         inp, n_features=n_features, n_levels=n_levels, scale=scale,
         hw=hw, window_th=window_th,
     )
-    # 2x8 LM schedule, as the JAX package's fused path
-    res = pose_opt.pose_optimize_auto(*prob, rounds=2, iters=8)
-    return TrackOutputs(
-        Tcw=res.Tcw,
-        n_inliers=res.inliers.sum(-1, dtype=torch.int32),
-        match_mp=torch.where(res.inliers, match_mp, -1),
-        features=feats,
-        xy_ud=xy_ud,
-    )
+    with named_range("pose"):
+        # 2x8 LM schedule, as the JAX package's fused path
+        res = pose_opt.pose_optimize_auto(*prob, rounds=2, iters=8)
+        return TrackOutputs(
+            Tcw=res.Tcw,
+            n_inliers=res.inliers.sum(-1, dtype=torch.int32),
+            match_mp=torch.where(res.inliers, match_mp, -1),
+            features=feats,
+            xy_ud=xy_ud,
+        )
 
 
 def tracking_step(inp: TrackInputs, **kwargs) -> TrackOutputs:

@@ -7,6 +7,11 @@ an NVTX range does in Nsight, and device kernels launched inside it sit
 under it on the timeline.  Set SWARMMAP_TRACE_DIR=<dir> to capture a trace
 of the CPU and (where there is a card) CUDA activity, written on exit as a
 Chrome trace, <dir>/trace-<pid>.json (chrome://tracing, Perfetto).
+
+The tracking step's stages are named ranges: `extract` with its
+`extract.*` parts (ops/extractor.py), `match` with its `match.*` parts
+and `pose` (pipeline.py).  The benchmark attributes each kernel to the
+innermost range open when it was launched (benchmark/spans.py).
 """
 from __future__ import annotations
 
@@ -16,17 +21,17 @@ from pathlib import Path
 
 import torch
 
+_NULL = contextlib.nullcontext()
+
 
 def named_range(label: str):
     """Annotate a host-side region; device ops launched inside it are
-    attributed to it in the trace (NVTX range equivalent)."""
-    return torch.profiler.record_function(label)
-
-
-def device_scope(label: str):
-    """Annotate a region of device work (JAX's `named_scope` inside jit;
-    eager PyTorch has one kind of range)."""
-    return torch.profiler.record_function(label)
+    attributed to it in the trace (NVTX range equivalent).  A range is
+    built only while a torch profiler records: otherwise this returns one
+    shared null context, so an untraced call pays one flag read."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(label)
+    return _NULL
 
 
 @contextlib.contextmanager
